@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                    # every phase, as a release check
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
+    python3 chip_smoke.py --phases build,train,kernels   # the train path only
 
 Phases:
 
@@ -11,6 +12,9 @@ Phases:
 2. ``reference``: the full-width UNet on one small CFG window and the VAE
    decoder on one small latent, each run once through the kernels and once
    with every kernel swapped for its plain version; the outputs must agree.
+   Then one loss + backward of a UNet of full width per layer and one layer
+   per block (4 frames, 32^2 latents) through the train kernels and through
+   their plain versions; the gradients must agree.
 3. ``slice``: one demo_3d spatial task through the port's sampler at full
    width -- a synthetic 16-camera scene at 1024^2, inputs [1, 5, 9, 13],
    window 12 (CFG batch 32 at 128^2 latents, as in production demo_3d),
@@ -19,15 +23,28 @@ Phases:
    from a seed: 12 windows, 12 steps per target, 12 decoded images. Launch
    counters (and the wrappers' records of launched shapes) are zeroed just
    before it and read just after: every kernel must have run.
-4. ``kernels``: each kernel against its plain PyTorch version, in bf16,
-   with CUDA-event times of both, at a fixed list of the slice's shapes
-   plus every (shape, epilogue variant) the slice launched. Where the plain
-   attention cannot hold the S x S scores it is compared on a random subset
-   of query rows against the full K/V and timed query-chunked.
+4. ``train``: three optimiser steps of the full-width UNet (0.87 B
+   parameters, fp32 masters, bf16 compute, per-block remat, AdamW) on one
+   window batch of the synthetic scene through ``WindowBatcher`` +
+   ``encode_training_batch`` (B = 1, L = 12: 4 condition rows + 8 targets,
+   1024^2 images, 128^2 latents) with a fixed noise draw, twice from the
+   same weights. Counters are zeroed just before and read just after: the
+   forward-with-logsumexp, dK/dV and dQ kernels and the fused conv must
+   have launched the reckoned number of times; the loss must be finite, fall
+   from step 1 to step 3 and repeat bit for bit at step 1.
+5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
+   with CUDA-event times of both, of the one PyTorch library call that
+   computes the same function (a yardstick, called nowhere in the port) and
+   the card's bound for the work, at a fixed list of the paths' shapes plus
+   every (shape, epilogue variant) the slice and the train phase launched.
+   Where the plain attention cannot hold the S x S scores it is compared on
+   a random subset of query rows against the full K/V and timed
+   query-chunked; dK/dV are then compared with Q and dO cut to that subset
+   on both sides.
 
 ``--phases profile`` (not in the default set) adds a torch.profiler
-breakdown of one CFG window step and one VAE decode micro-batch by kernel
-group, written beside the ``--out`` file as ``profile_*.txt``.
+breakdown of one CFG window step, one VAE decode micro-batch and one train
+step by kernel group, written beside the ``--out`` file as ``profile_*.txt``.
 
 Exit code 0 only when every phase passed. The last stdout line is the JSON
 device record; the line before it lists the kernels. Without a CUDA device
@@ -48,7 +65,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "reference", "slice", "kernels")
+PHASES = ("build", "reference", "slice", "train", "kernels")
 EXTRA_PHASES = ("profile",)  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -72,6 +89,27 @@ CONV_SHAPES = [
     (2, 1024, 1024, 256, 128),
     (2, 512, 512, 512, 256),
 ]
+# (B, S, H) at head dim 64 of the train step (B = 1 window of L = 12 frames
+# over 128^2 latents): per-frame and 3D attention at each level
+TRAIN_ATTN_SHAPES = [
+    (1, 49152, 10),  # 3D, 64^2 (the heaviest single call)
+    (12, 16384, 5),  # per-frame, 128^2
+    (12, 4096, 10),  # per-frame, 64^2
+    (1, 12288, 20),  # 3D, 32^2
+    (12, 1024, 20),  # per-frame, 32^2
+    (1, 3072, 20),  # 3D, 16^2 mid block
+    (12, 256, 20),  # per-frame, 16^2 mid block
+]
+TRAIN_L = 12  # frames of the train window: 4 condition rows + 8 targets
+TRAIN_STEPS = 3
+# attention calls of one UNet forward: 3 levels x (2 down + 3 up) + 1 mid
+# transformer blocks, each with one 3D / per-frame pair
+ATTN_CALLS_PER_FORWARD = 32
+# the card's published peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor
+# cores and HBM3 bandwidth; a kernel's bound is the larger of its FLOPs over
+# the one and its bytes (inputs read once, outputs written once) over the other
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 # (affine, silu, residual) of the epilogue variants
 CONV_VARIANTS = {"plain": (False, False, False), "affine_silu": (True, True, False),
                  "affine_silu_res": (True, True, True)}
@@ -92,6 +130,12 @@ CONV_REL_TOL = 2 ** -6
 # relative L2 error of a bf16 network run through the kernels vs through
 # the plain versions (a wrong kernel gives O(1))
 E2E_REL_TOL = 5e-2
+# the backward kernels vs their plain versions (the same roundings of Qs, P
+# and dS on both sides, fp32 sums in another order): 4 bf16 ulps of the
+# largest gradient entry of each (batch row, head); the second half of the
+# heads has peaked logits. L2 is fp32: sums in another order only.
+BWD_REL_TOL = 2 ** -5
+L2_ABS_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -119,6 +163,26 @@ def cuda_ms(fn, iters: int = 3, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: FLOPs at the bf16 peak or bytes
+    at the HBM rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes"}
+
+
+def try_ms(fn, **kw):
+    """Time a library yardstick; None where the library cannot run it."""
+    import torch
+
+    try:
+        return cuda_ms(fn, **kw)
+    except RuntimeError as e:  # out of memory included
+        log(f"    library call not timed: {type(e).__name__}: {str(e)[:100]}")
+        torch.cuda.empty_cache()
+        return None
 
 
 # ------------------------------------------------------------------ phases
@@ -168,13 +232,18 @@ def check_attention(B: int, S: int, Sk: int, H: int, D: int, gen) -> dict:
             fa.attention_plain(q[:, i : i + c], k, v)
 
     plain_ms = cuda_ms(plain_chunked, iters=1, warmup=0 if S >= 16384 else 1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D) views
+    library_ms = try_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+                        iters=3 if S >= 16384 else 10)
     flop = 4.0 * B * H * S * Sk * D
     shape = f"B{B}xS{S}xH{H}xD{D}" + (f"xSk{Sk}" if Sk != S else "")
     res = {"shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-           "tflops": flop / ms / 1e9, "checked_rows": int(rows.numel())}
+           "library_ms": library_ms, "tflops": flop / ms / 1e9,
+           "checked_rows": int(rows.numel()),
+           **bound(flop, 2.0 * (2 * q.numel() + 2 * k.numel()))}
     log(f"  attention {shape}: err {err:.3e} (rel {rel:.3e}, tol {ATTN_REL_TOL:.3e})  "
         f"kernel {ms:.3f} ms ({res['tflops']:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  "
-        f"rows {rows.numel()}")
+        f"library {library_ms} ms  bound {res['bound_ms']:.3f} ms  rows {rows.numel()}")
     if not rel <= ATTN_REL_TOL:
         raise AssertionError(f"attention {shape}: error {rel} of the largest output "
                              f"> {ATTN_REL_TOL}")
@@ -204,14 +273,183 @@ def check_conv(B: int, H: int, W: int, cin: int, cout: int, affine: bool, silu: 
     tol = CONV_REL_TOL * max(1.0, ref.float().abs().max().item())
     ms = cuda_ms(lambda: conv.conv3x3(x, w, bias, **kw))
     plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, w, bias, **kw))
+    wl = w.bfloat16().contiguous(memory_format=torch.channels_last)
+    bl = bias.bfloat16()
+
+    def library():
+        """Eager GroupNorm-affine + SiLU, one bf16 channels-last conv2d, residual add."""
+        h = x
+        if affine:
+            h = h.float() * kw["scale"][:, None, None, :] + kw["shift"][:, None, None, :]
+        if silu:
+            h = torch.nn.functional.silu(h.float())
+        y = torch.nn.functional.conv2d(h.bfloat16().permute(0, 3, 1, 2), wl, bl, padding=1)
+        y = y.permute(0, 2, 3, 1)
+        return y + kw["residual"] if residual else y
+
+    library_ms = try_ms(library)
     flop = 2.0 * B * H * W * cout * 9 * cin
+    nbytes = 2.0 * (x.numel() + w.numel() + B * H * W * cout * (2 if residual else 1))
     res = {"shape": f"B{B}x{H}x{W}x{cin}->{cout}:{variant}", "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "tflops": flop / ms / 1e9}
+           "plain_ms": plain_ms, "library_ms": library_ms, "tflops": flop / ms / 1e9,
+           **bound(flop, nbytes)}
     log(f"  conv3x3 {res['shape']}: err {err:.3e} (tol {tol:.3e})  kernel {ms:.3f} ms "
-        f"({res['tflops']:.1f} TFLOP/s)  plain {plain_ms:.3f} ms")
+        f"({res['tflops']:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  library {library_ms} ms  "
+        f"bound {res['bound_ms']:.3f} ms ({res['bound_by']})")
     if not err <= tol:
         raise AssertionError(f"conv3x3 {res['shape']}: max abs err {err} > {tol}")
     return res
+
+
+def _head_rel_err(got, want) -> float:
+    """Largest error of each (batch row, head) over its largest reference
+    entry; tensors are (B, S, H, D)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().amax(dim=(1, 3)) / want.abs().amax(dim=(1, 3))).max().item()
+
+
+def check_attention_train(B: int, S: int, Sk: int, H: int, gen) -> dict:
+    """The forward with logsumexp (out, L2), dK/dV and dQ kernels at head dim
+    64 against their plain versions, with times, bounds and the library's
+    forward / backward. Returns one result per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    D = 64
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    q[:, :, H // 2:] *= ATTN_PEAK  # heads of the second half: peaked logits
+    q = q.bfloat16()
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").bfloat16() for _ in range(2))
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+    qs = fb.scale_q(q)
+    c = _query_chunk(B, Sk, H, budget_bytes=8e9)
+    rows = torch.randperm(S, generator=gen, device="cuda")[:c].sort().values
+
+    out, l2 = fb.flash_fwd_lse(qs, k, v)
+    out_ref, l2_ref = fb.flash_fwd_lse_plain(qs[:, rows], k, v)
+    errs = {"flash_fwd_lse": ((out[:, rows].float() - out_ref.float()).abs().max().item(),
+                              _head_rel_err(out[:, rows], out_ref))}
+    l2_err = (l2[:, :, rows] - l2_ref).abs().max().item()
+    del out_ref, l2_ref
+    delta = fb.attention_delta(out, dout)
+    sub = (qs[:, rows].contiguous(), k, v, dout[:, rows].contiguous(),
+           l2[:, :, rows].contiguous(), delta[:, :, rows].contiguous())
+    dq = fb.flash_bwd_dq(qs, k, v, dout, l2, delta)
+    dq_ref = fb.flash_bwd_dq_plain(*sub)
+    errs["flash_bwd_dq"] = ((dq[:, rows].float() - dq_ref.float()).abs().max().item(),
+                            _head_rel_err(dq[:, rows], dq_ref))
+    del dq, dq_ref
+    # dK, dV: the queries (and dO, L2, delta) cut to the subset on both sides
+    dk, dv = fb.flash_bwd_dkdv(*sub)
+    dk_ref, dv_ref = fb.flash_bwd_dkdv_plain(*sub)
+    errs["flash_bwd_dkdv"] = (
+        max((dk.float() - dk_ref.float()).abs().max().item(),
+            (dv.float() - dv_ref.float()).abs().max().item()),
+        max(_head_rel_err(dk, dk_ref), _head_rel_err(dv, dv_ref)))
+    finite = all(torch.isfinite(x).all().item() for x in (out, l2, dk, dv))
+    del dk, dv, dk_ref, dv_ref, sub
+
+    big = S >= 12288
+    it = dict(iters=3 if big else 10)
+    ms = {"flash_fwd_lse": cuda_ms(lambda: fb.flash_fwd_lse(qs, k, v), **it),
+          "flash_bwd_dkdv": cuda_ms(lambda: fb.flash_bwd_dkdv(qs, k, v, dout, l2, delta), **it),
+          "flash_bwd_dq": cuda_ms(lambda: fb.flash_bwd_dq(qs, k, v, dout, l2, delta), **it)}
+
+    def chunked(fn):
+        def run():
+            for i in range(0, S, c):
+                r = slice(i, i + c)
+                fn(qs[:, r], k, v, dout[:, r], l2[:, :, r], delta[:, :, r])
+        return run
+
+    pl = dict(iters=1, warmup=0 if big else 1)
+    plain_ms = {
+        "flash_fwd_lse": cuda_ms(chunked(lambda qs_, k_, v_, *_: fb.flash_fwd_lse_plain(qs_, k_, v_)),
+                                 **pl),
+        "flash_bwd_dkdv": cuda_ms(chunked(fb.flash_bwd_dkdv_plain), **pl),
+        "flash_bwd_dq": cuda_ms(chunked(fb.flash_bwd_dq_plain), **pl)}
+    # the library: one SDPA forward; its backward (dQ, dK and dV in one
+    # autograd call) stands beside both backward kernels
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib_fwd = try_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), **it)
+    lib_bwd = None
+    if lib_fwd is not None:
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        go = dout.transpose(1, 2)
+        lib_bwd = try_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), **it)
+        del o
+    library_ms = {"flash_fwd_lse": lib_fwd, "flash_bwd_dkdv": lib_bwd, "flash_bwd_dq": lib_bwd}
+
+    unit = 2.0 * B * H * S * Sk * D  # one S x Sk x D matrix product
+    qb, kb, vec = 2.0 * q.numel(), 2.0 * k.numel(), 4.0 * B * H * S
+    # minimal work: fwd 2 products (S, PV); dK/dV 4 (S, dP, dV, dK); dQ 3 (S, dP, dQ)
+    bounds = {"flash_fwd_lse": bound(2 * unit, 2 * qb + 2 * kb + vec),
+              "flash_bwd_dkdv": bound(4 * unit, 2 * qb + 4 * kb + 2 * vec),
+              "flash_bwd_dq": bound(3 * unit, 3 * qb + 2 * kb + 2 * vec)}
+    nprod = {"flash_fwd_lse": 2, "flash_bwd_dkdv": 4, "flash_bwd_dq": 3}
+    shape = f"B{B}xS{S}xH{H}xD{D}" + (f"xSk{Sk}" if Sk != S else "")
+    results = {}
+    for name in ms:
+        err, rel = errs[name]
+        results[name] = {"shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms[name],
+                         "plain_ms": plain_ms[name], "library_ms": library_ms[name],
+                         "tflops": nprod[name] * unit / ms[name] / 1e9,
+                         "checked_rows": int(rows.numel()), **bounds[name]}
+        log(f"  {name} {shape}: err {err:.3e} (rel {rel:.3e}, tol {BWD_REL_TOL:.3e})  kernel "
+            f"{ms[name]:.3f} ms ({results[name]['tflops']:.1f} TFLOP/s)  plain "
+            f"{plain_ms[name]:.3f} ms  library {library_ms[name]} ms  bound "
+            f"{bounds[name]['bound_ms']:.3f} ms  rows {rows.numel()}")
+    results["flash_fwd_lse"]["l2_abs_err"] = l2_err
+    log(f"    L2 max abs err {l2_err:.3e} (tol {L2_ABS_TOL:.0e})")
+    if not finite:
+        raise AssertionError(f"attention train {shape}: non-finite output")
+    for name, (_, rel) in errs.items():
+        tol = ATTN_REL_TOL if name == "flash_fwd_lse" else BWD_REL_TOL
+        if not rel <= tol:
+            raise AssertionError(f"{name} {shape}: error {rel} of the largest entry > {tol}")
+    if not l2_err <= L2_ABS_TOL:
+        raise AssertionError(f"flash_fwd_lse {shape}: L2 error {l2_err} > {L2_ABS_TOL}")
+    return results
+
+
+def check_conv_grad(B: int, H: int, W: int, cin: int, cout: int, affine: bool, silu: bool,
+                    residual: bool, gen) -> dict:
+    """Gradients through the fused conv (kernel forward, library-convolution
+    backward on bf16 operands) against autograd through the plain version."""
+    import torch
+
+    from diffuman4d_torch.ops import conv
+
+    def leaf(t):
+        return t.requires_grad_(True)
+
+    x = leaf(torch.randn((B, H, W, cin), generator=gen, device="cuda").bfloat16())
+    w = leaf(torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / math.sqrt(9 * cin))
+    bias = leaf(0.1 * torch.randn((cout,), generator=gen, device="cuda"))
+    kw = {"silu": silu}
+    if affine:
+        kw.update(scale=leaf(1 + 0.2 * torch.randn((B, cin), generator=gen, device="cuda")),
+                  shift=leaf(0.2 * torch.randn((B, cin), generator=gen, device="cuda")))
+    if residual:
+        kw["residual"] = leaf(torch.randn((B, H, W, cout), generator=gen, device="cuda").bfloat16())
+    g = torch.randn((B, H, W, cout), generator=gen, device="cuda").bfloat16()
+    leaves = [x, w, bias] + [kw[n] for n in ("scale", "shift", "residual") if n in kw]
+    before = conv.conv3x3.launches
+    got = torch.autograd.grad(conv.conv3x3(x, w, bias, **kw), leaves, g)
+    launched = conv.conv3x3.launches - before
+    want = torch.autograd.grad(conv.conv3x3_plain(x, w, bias, **kw), leaves, g)
+    rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+              for a, b in zip(got, want))
+    shape = f"B{B}x{H}x{W}x{cin}->{cout}:affine{int(affine)}_silu{int(silu)}_res{int(residual)}"
+    log(f"  conv3x3 grad {shape}: worst relative error {rel:.3e} (tol {CONV_REL_TOL:.3e}), "
+        f"kernel launches {launched}")
+    if launched != 1:
+        raise AssertionError(f"conv3x3 grad {shape}: the forward launched {launched} kernels")
+    if not rel <= CONV_REL_TOL:
+        raise AssertionError(f"conv3x3 grad {shape}: relative error {rel} > {CONV_REL_TOL}")
+    return {"shape": shape, "rel_err": rel}
 
 
 def _ordered(fixed: list, launched) -> list:
@@ -228,7 +466,8 @@ def phase_kernels(launched: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False  # the plain conv runs in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"flash_fwd_d64": [], "flash_fwd_d512": [], "conv3x3": []}
+    results = {"flash_fwd_d64": [], "flash_fwd_d512": [], "conv3x3": [], "flash_fwd_lse": [],
+               "flash_bwd_dkdv": [], "flash_bwd_dq": [], "conv3x3_grad": []}
     for name, D, fixed in (("flash_fwd_d64", 64, ATTN64_SHAPES),
                            ("flash_fwd_d512", 512, ATTN512_SHAPES)):
         for B, S, Sk, H in _ordered([(B, S, S, H) for B, S, H in fixed], launched.get(name, ())):
@@ -238,6 +477,17 @@ def phase_kernels(launched: dict) -> dict:
     for shape in _ordered(fixed, launched.get("conv3x3", ())):
         results["conv3x3"].append(check_conv(*shape, gen))
         torch.cuda.empty_cache()
+    # the train path: B5-B7 at its fixed shapes and at every shape it launched
+    train_launched = set().union(*(launched.get(n, ()) for n in
+                                   ("flash_fwd_lse", "flash_bwd_dkdv", "flash_bwd_dq")))
+    for B, S, Sk, H in _ordered([(B, S, S, H) for B, S, H in TRAIN_ATTN_SHAPES], train_launched):
+        for name, res in check_attention_train(B, S, Sk, H, gen).items():
+            results[name].append(res)
+        torch.cuda.empty_cache()
+    # the fused conv's gradient at the UNet's 128^2 x 640 upsampler (train batch 12)
+    for flags in ((False, False, False), (True, True, True)):
+        results["conv3x3_grad"].append(check_conv_grad(TRAIN_L, 128, 128, 640, 640, *flags, gen))
+        torch.cuda.empty_cache()
     return results
 
 
@@ -245,10 +495,15 @@ def phase_kernels(launched: dict) -> dict:
 def plain_versions():
     """Route the model's kernel call sites to the plain versions."""
     from diffuman4d_torch.models import layers, vae
-    from diffuman4d_torch.ops import conv, flash_attention
+    from diffuman4d_torch.ops import conv, flash_attention, flash_backward
+
+    def attention(q, k, v, *, implementation="auto"):
+        if implementation == "train":
+            return flash_backward.flash_attention_train_plain(q, k, v)
+        return flash_attention.attention_plain(q, k, v)
 
     saved = (layers.dot_product_attention, vae.dot_product_attention, layers.conv3x3)
-    layers.dot_product_attention = vae.dot_product_attention = flash_attention.attention_plain
+    layers.dot_product_attention = vae.dot_product_attention = attention
     layers.conv3x3 = conv.conv3x3_plain
     try:
         yield
@@ -304,7 +559,79 @@ def phase_reference(unet, vae) -> dict:
     return res
 
 
+def _train_batch(gen, L: int, lat: int, device="cuda") -> dict:
+    """A random window batch (B = 1) in the layout of ``encode_training_batch``:
+    the first third of the rows are condition rows."""
+    import torch
+
+    is_cond = torch.zeros((1, L), dtype=torch.bool, device=device)
+    is_cond[:, : L // 3] = True
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).bfloat16()
+
+    return {"latents_x0": rnd(1, L, lat, lat, 4), "plucker": rnd(1, L, lat, lat, 6),
+            "skeletons": rnd(1, L, lat * 8, lat * 8, 3).clamp(-1, 1), "is_cond": is_cond}
+
+
+def phase_reference_train() -> dict:
+    """One loss + backward of a UNet of full width per layer, one layer per
+    block (0.50 B parameters), 4 frames at 32^2 latents: gradients through
+    the train kernels vs through their plain versions on the card."""
+    import torch
+
+    from diffuman4d_torch.models.unet import UNetConfig
+    from diffuman4d_torch.models.vae import VAEConfig
+    from diffuman4d_torch.ops import flash_backward as fb
+    from diffuman4d_torch.sampling.loader import build_models
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training.trainer import TrainConfig, diffusion_loss
+
+    unet, _ = build_models(UNetConfig(layers_per_block=1),
+                           VAEConfig(block_out_channels=(32, 32, 32, 32), layers_per_block=1),
+                           device="cuda", dtype=torch.bfloat16, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = _train_batch(gen, 4, 32)
+    t = torch.tensor([500], device="cuda")
+    eps = torch.randn((1, 4, 32, 32, 4), generator=gen, device="cuda")
+    sched, cfg = Scheduler(SchedulerConfig(), "cuda"), TrainConfig()
+    wrappers = (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)
+
+    def grads():
+        for p in unet.parameters():
+            p.grad = None
+        with unet.configured(attn_implementation="train"):
+            loss = diffusion_loss(unet, sched, cfg, batch, "spatial", t=t, eps=eps)
+            loss.backward()
+        return loss.item(), torch.cat([p.grad.float().flatten() for p in unet.parameters()])
+
+    before = [f.launches for f in wrappers]
+    loss, g = grads()
+    launched = [f.launches - b for f, b in zip(wrappers, before)]
+    before = [f.launches for f in wrappers]
+    with plain_versions():
+        loss_ref, g_ref = grads()
+    if [f.launches for f in wrappers] != before:
+        raise AssertionError("reference: a kernel launched inside the plain train run")
+    n_blocks = sum(1 for m in unet.modules() if type(m).__name__ == "MultiviewTransformerBlock")
+    res = {"train_loss": loss, "train_loss_plain": loss_ref, "grad_rel_l2": _rel_l2(g, g_ref),
+           "launches": launched, "transformer_blocks": n_blocks}
+    log(f"reference (train): loss {loss:.6f} vs plain {loss_ref:.6f}, gradient rel L2 "
+        f"{res['grad_rel_l2']:.3e}, launches fwd/dkdv/dq {launched} over {n_blocks} blocks")
+    # remat: two forwards per attention, one backward
+    if launched != [4 * n_blocks, 2 * n_blocks, 2 * n_blocks]:
+        raise AssertionError(f"reference: train kernel launches {launched}")
+    if not (math.isfinite(loss) and torch.isfinite(g).all()):
+        raise AssertionError("reference: non-finite train loss or gradient")
+    if not (abs(loss - loss_ref) <= E2E_REL_TOL * abs(loss_ref)
+            and res["grad_rel_l2"] <= E2E_REL_TOL):
+        raise AssertionError(f"reference: train kernels disagree with the plain versions {res}")
+    return res
+
+
 PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
+    ("flash_bwd_dkdv_kernel", "flash attention dK/dV (csrc)"),
+    ("flash_bwd_dq_kernel", "flash attention dQ (csrc)"),
     ("flash_fwd_kernel", "flash attention (csrc)"),
     ("conv3x3_kernel", "fused conv3x3 (csrc)"),
     ("fprop|conv|implicit|winograd", "cuDNN conv"),
@@ -316,9 +643,10 @@ PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
 
 def phase_profile(unet, vae, out_dir: Path) -> dict:
     """Device time by kernel group (torch.profiler) for one CFG window step
-    of the slice (batch 32 at 128^2 latents, 16-frame 3D attention) and one
-    VAE decode micro-batch (2 latents of 128^2), plus each one's wall time
-    around a synchronise: the device's idle share is 1 - busy / wall."""
+    of the slice (batch 32 at 128^2 latents, 16-frame 3D attention), one
+    VAE decode micro-batch (2 latents of 128^2) and one full-width train
+    step, plus each one's wall time around a synchronise: the device's idle
+    share is 1 - busy / wall."""
     import re
 
     import torch
@@ -329,41 +657,58 @@ def phase_profile(unet, vae, out_dir: Path) -> dict:
     pose = 0.1 * torch.randn((32, 128, 128, 320), generator=gen, device="cuda").bfloat16()
     t = torch.full((32,), 901, device="cuda")
     z = torch.randn((2, 128, 128, 4), generator=gen, device="cuda").bfloat16()
-    work = {"unet_window_step": lambda: unet(x, t, num_frames=16, pose_features=pose),
-            "vae_decode_x2": lambda: vae.decode(z)}
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training.trainer import TrainConfig, create_train_state, make_train_step
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    # one full-width train step (B = 1, L = 12, 128^2 latents, remat, AdamW);
+    # it moves the weights, so it is profiled last
+    tcfg = TrainConfig()
+    batch = _train_batch(gen, TRAIN_L, 128)
+    t_fix = torch.tensor([500], device="cuda")
+    eps = torch.randn((1, TRAIN_L, 128, 128, 4), generator=gen, device="cuda")
+    state = create_train_state(unet, tcfg)
+    step = make_train_step(unet, Scheduler(SchedulerConfig(), "cuda"), tcfg)
+    work = {"unet_window_step": no_grad(lambda: unet(x, t, num_frames=16, pose_features=pose)),
+            "vae_decode_x2": no_grad(lambda: vae.decode(z)),
+            "train_step": lambda: step(state, batch, t=t_fix, eps=eps)}
     res = {}
-    with torch.no_grad():
-        for name, fn in work.items():
+    for name, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            groups: dict[str, float] = {}
-            kernels = []
-            for evt in prof.key_averages():
-                us = getattr(evt, "self_device_time_total", 0.0) or 0.0
-                if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                kernels.append((us, evt.count, evt.key))
-                group = next(g for pat, g in PROFILE_GROUPS
-                             if not pat or re.search(pat, evt.key, re.I))
-                groups[group] = groups.get(group, 0.0) + us / 1e3
-            busy_ms = sum(groups.values())
-            kernels.sort(reverse=True)
-            res[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                         "idle_share": 1 - busy_ms / wall_ms, "groups_ms": groups,
-                         "top": [{"ms": us / 1e3, "calls": n, "kernel": k[:120]}
-                                 for us, n, k in kernels[:12]]}
-            log(f"profile {name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms")
-            for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-                log(f"    {ms:9.2f} ms  {100 * ms / busy_ms:5.1f}%  {g}")
-            (out_dir / f"profile_{name}.txt").write_text(prof.key_averages().table(
-                sort_by="self_cuda_time_total", row_limit=40))
+        groups: dict[str, float] = {}
+        kernels = []
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", 0.0) or 0.0
+            if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            kernels.append((us, evt.count, evt.key))
+            group = next(g for pat, g in PROFILE_GROUPS
+                         if not pat or re.search(pat, evt.key, re.I))
+            groups[group] = groups.get(group, 0.0) + us / 1e3
+        busy_ms = sum(groups.values())
+        kernels.sort(reverse=True)
+        res[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "idle_share": 1 - busy_ms / wall_ms, "groups_ms": groups,
+                     "top": [{"ms": us / 1e3, "calls": n, "kernel": k[:120]}
+                             for us, n, k in kernels[:12]]}
+        log(f"profile {name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms")
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"    {ms:9.2f} ms  {100 * ms / busy_ms:5.1f}%  {g}")
+        (out_dir / f"profile_{name}.txt").write_text(prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=40))
     return res
 
 
@@ -385,21 +730,143 @@ def _timed(obj, name: str, acc: dict) -> None:
     setattr(obj, name, wrapper)
 
 
+def _reset(wrappers) -> None:
+    """Zero the launch counts and the per-shape records."""
+    from collections import Counter
+
+    for fn in wrappers:
+        fn.launches = 0
+        fn.shapes = Counter()
+
+
+def _scene(work: Path) -> str:
+    """The synthetic 16-camera, one-frame scene at 1024^2 (made once)."""
+    from diffuman4d_torch.data import make_synthetic_scene
+
+    if not (work / "data" / "scene0").is_dir():
+        make_synthetic_scene(str(work / "data"), "scene0", num_cams=16, num_frames=1,
+                             image_size=1024)
+    return str(work / "data")
+
+
+def phase_train(unet, vae, work: Path) -> dict:
+    """Three optimiser steps of the full-width UNet on one window batch of
+    the synthetic scene, run twice from the same weights."""
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch.data import SpaTemDataset
+    from diffuman4d_torch.ops import conv, flash_attention as fa, flash_backward as fb
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training.data import (
+        WindowBatcher,
+        WindowBatcherConfig,
+        encode_training_batch,
+    )
+    from diffuman4d_torch.training.trainer import (
+        TrainConfig,
+        create_train_state,
+        make_train_step,
+        sync_module,
+    )
+
+    t0 = time.perf_counter()
+    dataset = SpaTemDataset(data_dir=_scene(work), scene_label="scene0", height=1024, width=1024)
+    pipe = Diffuman4DPipeline(unet, vae, Scheduler(SchedulerConfig()), image_size=1024,
+                              vae_batch=4, device="cuda")
+    batcher = WindowBatcher(dataset, WindowBatcherConfig(
+        window_size=TRAIN_L - 4, tem_labels=["000000"],
+        input_spa_labels=["01", "05", "09", "13"]))
+    raw = batcher.make_batch(np.random.default_rng(0), 1, "spatial")
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in unet.parameters())
+    start = {k: p.detach().clone() for k, p in unet.named_parameters()}
+    tcfg = TrainConfig()  # the defaults: lr 1e-5, remat, AdamW, attention "train"
+    step = make_train_step(unet, pipe.scheduler, tcfg, "spatial")
+
+    wrappers = {"flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd_dkdv": fb.flash_bwd_dkdv,
+                "flash_bwd_dq": fb.flash_bwd_dq, "conv3x3": conv.conv3x3,
+                "flash_fwd_d512": fa.flash_attention_d512, "flash_fwd_d64": fa.flash_attention_d64}
+    runs = []
+    for run in range(2):
+        sync_module(unet, start)
+        state = create_train_state(unet, tcfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        _reset(wrappers.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = encode_training_batch(pipe, raw, gen)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        encode_launches = {n: f.launches for n, f in wrappers.items()}
+        # the fixed noise draw: one timestep and one eps for all three steps
+        t_fix = torch.randint(0, 1000, (1,), generator=gen, device="cuda")
+        eps = torch.randn(batch["latents_x0"].shape, generator=gen, device="cuda")
+        losses, norms, step_s, off_graph = [], [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, t=t_fix, eps=eps)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            off_graph = m["params_without_grad"]
+        launches = {n: f.launches for n, f in wrappers.items()}
+        shapes = {n: sorted(f.shapes) for n, f in wrappers.items()}
+        runs.append({"losses": losses, "grad_norms": norms, "step_s": step_s,
+                     "encode_s": encode_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": launches, "encode_launches": encode_launches,
+                     "params_without_grad": off_graph, "t": int(t_fix.item())})
+        del state
+        torch.cuda.empty_cache()
+    sync_module(unet, start)
+    first = runs[0]
+    res = {"setup_s": setup_s, "n_params": n_params, "rows": list(raw["pixel_values"].shape),
+           "latents": list(batch["latents_x0"].shape), "runs": runs, "shapes": shapes,
+           "launches": first["launches"],
+           "repeat_bits": [a == b for a, b in zip(first["losses"], runs[1]["losses"])]}
+    log(f"train: {json.dumps(res)}")
+    steps = {n: first["launches"][n] - first["encode_launches"][n] for n in wrappers}
+    expect = {"flash_fwd_lse": 2 * ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
+              "flash_bwd_dkdv": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
+              "flash_bwd_dq": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
+              "conv3x3": 2 * TRAIN_STEPS,  # the 128^2 x 640 upsampler, forward and recompute
+              "flash_fwd_d512": 0, "flash_fwd_d64": 0}
+    if list(batch["latents_x0"].shape) != [1, TRAIN_L, 128, 128, 4] or n_params < 0.8e9:
+        raise AssertionError(f"train: not the full-width step: {res['latents']}, {n_params}")
+    if steps != expect:
+        raise AssertionError(f"train: launches in the steps {steps}, reckoned {expect}")
+    if first["encode_launches"]["flash_fwd_d512"] == 0 or first["encode_launches"]["conv3x3"] == 0:
+        raise AssertionError(f"train: the VAE encode launched {first['encode_launches']}")
+    for r in runs:
+        if not all(math.isfinite(v) for v in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"train: non-finite loss or gradient norm {r}")
+        if not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"train: the loss did not fall: {r['losses']}")
+        if r["params_without_grad"]:
+            raise AssertionError(f"train: parameters without a gradient: "
+                                 f"{r['params_without_grad'][:8]}")
+    if not res["repeat_bits"][0]:
+        raise AssertionError(f"train: the first step does not repeat: {first['losses']} vs "
+                             f"{runs[1]['losses']}")
+    return res
+
+
 def phase_slice(unet, vae, work: Path) -> dict:
     import numpy as np
     import torch
 
-    from diffuman4d_torch.data import SpaTemDataset, make_synthetic_scene
+    from diffuman4d_torch.data import SpaTemDataset
     from diffuman4d_torch.ops import conv, flash_attention as fa
     from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline, SlidingConfig
     from diffuman4d_torch.sampling.sampler import SlidingIterativeSampler
     from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
 
-    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(work / "out", ignore_errors=True)
     t0 = time.perf_counter()
-    make_synthetic_scene(str(work / "data"), "scene0", num_cams=16, num_frames=1,
-                         image_size=1024)
-    dataset = SpaTemDataset(data_dir=str(work / "data"), scene_label="scene0",
+    dataset = SpaTemDataset(data_dir=_scene(work), scene_label="scene0",
                             height=1024, width=1024)
     sliding = SlidingConfig(window_size=12, sliding_stride=1, alternation_rounds=1,
                             guidance_scale=2.0)
@@ -421,9 +888,7 @@ def phase_slice(unet, vae, work: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     wrappers = {"flash_fwd_d64": fa.flash_attention_d64,
                 "flash_fwd_d512": fa.flash_attention_d512, "conv3x3": conv.conv3x3}
-    for fn in wrappers.values():
-        fn.launches = 0
-        fn.shapes = set()
+    _reset(wrappers.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sampler.execute_tasks()  # validates the grid and the output set itself
@@ -431,6 +896,11 @@ def phase_slice(unet, vae, work: Path) -> dict:
     total_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
     shapes = {name: sorted(fn.shapes) for name, fn in wrappers.items()}
+    # the d = 64 forward serves two TPU kernels: 3D window attention (the CFG
+    # pair as batch 2) and per-frame attention (batch 2 L)
+    window = sum(n for (B, *_), n in fa.flash_attention_d64.shapes.items() if B <= 2)
+    launches["flash_fwd_d64_window"] = window
+    launches["flash_fwd_d64_frame"] = launches["flash_fwd_d64"] - window
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     images = np.concatenate(decoded)
@@ -453,14 +923,25 @@ def phase_slice(unet, vae, work: Path) -> dict:
 
 
 # -------------------------------------------------------------------- main
+_FA = "diffuman4d_tpu/ops/flash_attention.py"
+_FB = "diffuman4d_tpu/ops/flash_backward.py"
+# name -> (source, the TPU kernel it replaces, results key of its checks,
+# index of its headline check, phase whose run counts its launches)
 KERNEL_META = {
-    "flash_fwd_d64": ("diffuman4d_torch/csrc/flash_attn.cu",
-                      "diffuman4d_tpu/ops/flash_attention.py:342 (_flash_kernel_v4) and "
-                      ":199 (_flash_kernel_v3)"),
-    "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn.cu",
-                       "diffuman4d_tpu/ops/flash_attention.py:54 (_flash_kernel)"),
-    "conv3x3": ("diffuman4d_torch/csrc/conv3x3.cu",
-                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)"),
+    "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn.cu",
+                             f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0, "slice"),
+    "flash_fwd_d64_frame": ("diffuman4d_torch/csrc/flash_attn.cu",
+                            f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1, "slice"),
+    "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FA}:54 (_flash_kernel)",
+                       "flash_fwd_d512", 0, "slice"),
+    "conv3x3": ("diffuman4d_torch/csrc/conv3x3.cu", "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)",
+                "conv3x3", 2, "slice"),
+    "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FB}:49 (_fwd_kernel)",
+                      "flash_fwd_lse", 0, "train"),
+    "flash_bwd_dkdv": ("diffuman4d_torch/csrc/flash_attn_bwd.cu", f"{_FB}:162 (_dkdv_kernel)",
+                       "flash_bwd_dkdv", 0, "train"),
+    "flash_bwd_dq": ("diffuman4d_torch/csrc/flash_attn_bwd.cu", f"{_FB}:205 (_dq_kernel)",
+                     "flash_bwd_dq", 0, "train"),
 }
 
 
@@ -505,20 +986,30 @@ def main() -> int:
 
     if "build" in phases or "kernels" in phases:
         run("build", phase_build)
-    if {"reference", "slice", "profile"} & set(phases):
+    work = ROOT / "build" / "smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    if "reference" in phases:
+        run("reference_train", phase_reference_train)
+        torch.cuda.empty_cache()
+    if {"reference", "slice", "train", "profile"} & set(phases):
         from diffuman4d_torch.sampling.loader import build_models
 
         unet, vae = build_models(device="cuda", dtype=torch.bfloat16, seed=0)
         if "reference" in phases:
             run("reference", phase_reference, unet, vae)
         if "slice" in phases:
-            run("slice", phase_slice, unet, vae, ROOT / "build" / "smoke")
+            run("slice", phase_slice, unet, vae, work)
+        if "train" in phases:  # moves the UNet's weights and puts them back
+            run("train", phase_train, unet, vae, work)
         if "profile" in phases:
             run("profile", phase_profile, unet, vae, Path(args.out).parent)
         del unet, vae
         torch.cuda.empty_cache()
     if "kernels" in phases and "build" not in results["failed"]:
-        run("kernels", phase_kernels, results.get("slice", {}).get("shapes", {}))
+        launched = dict(results.get("slice", {}).get("shapes", {}))
+        for name, shapes in results.get("train", {}).get("shapes", {}).items():
+            launched[name] = list(launched.get(name, ())) + list(shapes)
+        run("kernels", phase_kernels, launched)
     results["wall_s"] = time.perf_counter() - t_start
 
     out = Path(args.out)
@@ -529,14 +1020,20 @@ def main() -> int:
         return 1
 
     kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
-        checks = results.get("kernels", {}).get(name, [])
-        head = checks[0] if checks else {}
+    for name, (source, replaces, key, idx, phase) in KERNEL_META.items():
+        checks = results.get("kernels", {}).get(key, [])
+        head = checks[idx] if len(checks) > idx else {}
+        launches = results.get(phase, {}).get("launches", {}).get(name)
+        if launches == 0 or ("kernels" in results and not head):
+            log(f"chip_smoke: FAILED kernel {name}: {launches} launches on the {phase} path, "
+                f"{len(checks)} checks")
+            return 1
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": results.get("slice", {}).get("launches", {}).get(name),
+            "launches": launches,
             "max_abs_err": max((c["max_abs_err"] for c in checks), default=None),
-            "ms": head.get("ms"), "plain_ms": head.get("plain_ms"), "shape": head.get("shape"),
+            **{k: head.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "shape")},
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 ``diffuman4d_tpu`` for NVIDIA Hopper GPUs.
 
 It mirrors the JAX package's layout (``ops``, ``models``, ``schedulers``,
-``data``, ``sampling``, ``io``), keeps its NHWC / (B, S, H, D) layouts at
-public functions, and reuses its numpy-only modules by import. It never
-imports jax or flax. The hand-written CUDA kernels live in ``csrc`` and are
+``data``, ``sampling``, ``training``, ``io``), keeps its NHWC / (B, S, H, D) layouts at
+public functions, and keeps its own copies of the numpy-only host modules
+(data loading, windows, outputs) and a ``training`` sub-package. It never
+imports the JAX package, jax or flax. The hand-written CUDA kernels live in ``csrc`` and are
 built at first use (``ops/cuda_build.py``).
 """
 

@@ -24,6 +24,13 @@
 // the UNet at the VAE's one-head shape). Ragged S is masked: out-of-range
 // rows load as zeros, out-of-range keys score -1e30, out-of-range query
 // rows are not stored.
+//
+// The training forward (TPU kernel _fwd_kernel of
+// diffuman4d_tpu/ops/flash_backward.py) is the d = 64 instantiation with two
+// differences chosen at launch: Q arrives pre-scaled by log2(e)/sqrt(d) and
+// rounded to bf16 (scale_log2 = 1, so the backward kernels of
+// flash_attn_bwd.cu recompute bit-identical scores), and the per-query base-2
+// logsumexp L2 = m + log2(sum exp2(s - m)) is stored as (B, H, Sq) fp32.
 
 #include "mma_common.cuh"
 
@@ -37,8 +44,8 @@ constexpr float NEG_BIG = -1e30f;
 template <int D, int DV, int STAGES>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq, int Sk,
-                     float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ l2,
+                     int H, int Sq, int Sk, float scale_log2) {
   constexpr bool QREG = D <= 128;  // keep Q fragments in registers
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BM x D
@@ -208,6 +215,10 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   const float inv0 = 1.f / l_r[0], inv1 = 1.f / l_r[1];
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  if (l2 != nullptr && t == 0 && blockIdx.z == 0) {
+    if (r0 < Sq) l2[(long)bh * Sq + r0] = m_r[0] + log2f(l_r[0]);
+    if (r1 < Sq) l2[(long)bh * Sq + r1] = m_r[1] + log2f(l_r[1]);
+  }
 #pragma unroll
   for (int dt = 0; dt < DV / 8; ++dt) {
     const int col = d0 + dt * 8 + 2 * t;
@@ -221,17 +232,16 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 template <int D, int DV, int STAGES>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq, int Sk,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* l2, float scale_log2, int B,
+           int H, int Sq, int Sk, cudaStream_t stream) {
   constexpr size_t smem = (size_t)(BM * D + STAGES * BN * D + STAGES * BN * DV) * sizeof(bf16);
   auto kern = flash_fwd_kernel<D, DV, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BM - 1) / BM, B * H, D / DV);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   kern<<<grid, NTHREADS, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                         static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Sq,
-                                         Sk, scale_log2);
+                                         static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                                         static_cast<float*>(l2), H, Sq, Sk, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -243,7 +253,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
                               int Sq, int Sk, int D, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64, 64, 2>(q, k, v, o, B, H, Sq, Sk, s);
-  if (D == 512) return launch<512, 128, 1>(q, k, v, o, B, H, Sq, Sk, s);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  if (D == 64) return launch<64, 64, 2>(q, k, v, o, nullptr, scale_log2, B, H, Sq, Sk, s);
+  if (D == 512) return launch<512, 128, 1>(q, k, v, o, nullptr, scale_log2, B, H, Sq, Sk, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The training forward at head dim 64. qs: Q already scaled by log2(e)/sqrt(d)
+// and rounded to bf16; l2: (B, H, Sq) fp32 output, the base-2 logsumexp of
+// each query's scores. Other arguments as flash_attn_fwd.
+extern "C" int flash_attn_fwd_lse(const void* qs, const void* k, const void* v, void* o, void* l2,
+                                  int B, int H, int Sq, int Sk, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 || l2 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch<64, 64, 2>(qs, k, v, o, l2, 1.f, B, H, Sq, Sk, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,8 @@
-"""Host-side data. The loaders, cameras, crops and the synthetic scene of
-the JAX package are numpy-only (none imports jax), so the port uses them as
-they are; only the ray math (:mod:`.rays`) is ported to torch."""
+"""Host-side data: loaders, cameras, crops and the synthetic scene (numpy /
+PIL, the port's own copies of the JAX package's modules of the same names)
+and the ray math ported to torch (:mod:`.rays`)."""
 
-from diffuman4d_tpu.data.dataset import Sample, SpaTemDataset
-from diffuman4d_tpu.data.synthetic import make_synthetic_scene
+from diffuman4d_torch.data.dataset import Sample, SpaTemDataset
+from diffuman4d_torch.data.synthetic import make_synthetic_scene
 
 __all__ = ["Sample", "SpaTemDataset", "make_synthetic_scene"]

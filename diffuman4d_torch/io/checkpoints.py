@@ -5,7 +5,10 @@ Numpy only. It restates ``export_unet_torch_keys`` / ``export_vae_torch_keys``
 of ``diffuman4d_tpu/io/checkpoints.py`` (which cannot be imported here: that
 module imports ``jax.numpy`` and the flax models). Conv kernels go from flax
 HWIO to PyTorch OIHW, dense kernels from (in, out) to (out, in), norm scales
-become ``weight``.
+become ``weight``. The mapping is linear (renames, transposes), so a flax
+gradient tree and optax's Adam moments go through it unchanged
+(:func:`grads_from_flax`, :func:`adam_state_from_flax`) and can be compared
+with the port's key by key.
 """
 
 from __future__ import annotations
@@ -147,6 +150,32 @@ def vae_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
 def state_dicts_from_flax(unet_params: dict, vae_params: dict):
     """(unet, vae) flax ``params`` trees -> (unet, vae) numpy state dicts."""
     return unet_state_dict_from_flax(unet_params), vae_state_dict_from_flax(vae_params)
+
+
+def grads_from_flax(unet_grads: dict) -> dict[str, np.ndarray]:
+    """A flax gradient tree of the UNet ``params`` -> numpy dict keyed like
+    the port's ``named_parameters``."""
+    return unet_state_dict_from_flax(unet_grads)
+
+
+def adam_state_from_flax(opt_state) -> dict:
+    """An optax optimiser state that holds one Adam state (any nesting of
+    tuples, as ``optax.chain`` builds) -> ``{"count", "mu", "nu"}`` in the
+    layout of the port's ``training.trainer.Optimizer``."""
+    def find(node):
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                if (hit := find(child)) is not None:
+                    return hit
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise KeyError("no Adam state (mu, nu) in the optimiser state")
+    return {"count": int(adam.count), "mu": unet_state_dict_from_flax(adam.mu),
+            "nu": unet_state_dict_from_flax(adam.nu)}
 
 
 def load_numpy_state_dict(module: torch.nn.Module, state: dict[str, np.ndarray]) -> None:

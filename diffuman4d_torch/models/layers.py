@@ -90,10 +90,12 @@ class Attention(nn.Module):
     """Multi-head self-attention (diffusers ``Attention``): qkv without
     bias, output projection with bias."""
 
-    def __init__(self, query_dim: int, num_heads: int, head_dim: int):
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int,
+                 attn_implementation: str = "auto"):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.attn_implementation = attn_implementation
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
@@ -105,7 +107,8 @@ class Attention(nn.Module):
         q = self.to_q(x).reshape(shape)
         k = self.to_k(x).reshape(shape)
         v = self.to_v(x).reshape(shape)
-        out = dot_product_attention(q, k, v).reshape(b, s, -1)
+        out = dot_product_attention(q, k, v, implementation=self.attn_implementation)
+        out = out.reshape(b, s, -1)
         return self.to_out[0](out)
 
 

@@ -24,12 +24,13 @@ class LayerNorm32(nn.LayerNorm):
 
 
 class MultiviewTransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, head_dim: int):
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 attn_implementation: str = "auto"):
         super().__init__()
         self.norm1 = LayerNorm32(dim, eps=1e-5)
-        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.attn1 = Attention(dim, num_heads, head_dim, attn_implementation)
         self.norm2 = LayerNorm32(dim, eps=1e-5)
-        self.attn2 = Attention(dim, num_heads, head_dim)
+        self.attn2 = Attention(dim, num_heads, head_dim, attn_implementation)
         self.norm3 = LayerNorm32(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
@@ -49,7 +50,7 @@ class TransformerMultiview(nn.Module):
 
     def __init__(self, channels: int, num_heads: int, head_dim: int, num_layers: int = 1,
                  norm_groups: int = 32, use_linear_projection: bool = True,
-                 norm_eps: float = 1e-6):
+                 norm_eps: float = 1e-6, attn_implementation: str = "auto"):
         super().__init__()
         inner = num_heads * head_dim
         self.use_linear_projection = use_linear_projection
@@ -61,7 +62,8 @@ class TransformerMultiview(nn.Module):
             self.proj_in = nn.Conv2d(channels, inner, 1)
             self.proj_out = nn.Conv2d(inner, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [MultiviewTransformerBlock(inner, num_heads, head_dim) for _ in range(num_layers)]
+            [MultiviewTransformerBlock(inner, num_heads, head_dim, attn_implementation)
+             for _ in range(num_layers)]
         )
 
     def forward(self, x: torch.Tensor, num_frames: int = 1) -> torch.Tensor:

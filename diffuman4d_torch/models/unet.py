@@ -7,18 +7,27 @@ the deepest ``num_3d_attn_blocks`` attention stages attend across the
 window's frames (the mid block always does); an optional zero-init
 temporal embedding is fed per-frame indices; an optional pose-encoder
 feature is added to conv_in's output. Inputs and outputs are NHWC.
+
+Two settings serve training, as in the JAX module: ``attn_implementation``
+is handed down to every ``Attention`` ("train" selects the differentiable
+kernels), and ``remat`` recomputes each down / mid / up block and the pose
+encoder in the backward pass (``torch.utils.checkpoint``), so that only
+block boundaries are kept. Neither changes a parameter name.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffuman4d_torch.models.layers import (
+    Attention,
     GroupNorm,
     TimestepEmbedding,
     conv_nhwc,
@@ -66,11 +75,14 @@ class TimestepEmbeddingZeroOut(TimestepEmbedding):
 
 
 class UNetMultiviewCondition(nn.Module):
-    def __init__(self, config: UNetConfig = UNetConfig()):
+    def __init__(self, config: UNetConfig = UNetConfig(), attn_implementation: str = "auto",
+                 remat: bool = False):
         super().__init__()
         if config.freeu is not None:
             raise NotImplementedError("FreeU is not ported yet")
         cfg = self.config = config
+        self.remat = remat
+        impl = attn_implementation
         ch = cfg.block_out_channels
         n = len(ch)
         ted = cfg.time_embed_dim
@@ -90,14 +102,15 @@ class UNetMultiviewCondition(nn.Module):
             else:
                 blk = CrossAttnDownBlockMultiview(
                     prev, ch[i], ted, cfg.num_attention_heads[i], cfg.layers_per_block,
-                    cfg.transformer_layers_per_block, True, groups, cfg.use_linear_projection)
+                    cfg.transformer_layers_per_block, True, groups, cfg.use_linear_projection,
+                    attn_implementation=impl)
             down.append(blk)
             skips += [ch[i]] * cfg.layers_per_block + ([] if final else [ch[i]])
             prev = ch[i]
         self.down_blocks = nn.ModuleList(down)
         self.mid_block = UNetMidBlockMultiviewCrossAttn(
             ch[-1], ted, cfg.num_attention_heads[-1], 1, cfg.transformer_layers_per_block,
-            groups, cfg.use_linear_projection)
+            groups, cfg.use_linear_projection, attn_implementation=impl)
 
         up = []
         rev_ch, rev_heads = list(reversed(ch)), list(reversed(cfg.num_attention_heads))
@@ -112,7 +125,8 @@ class UNetMultiviewCondition(nn.Module):
             else:
                 blk = CrossAttnUpBlockMultiview(
                     prev, pop_order, rev_ch[i], ted, rev_heads[i],
-                    cfg.transformer_layers_per_block, add_up, groups, cfg.use_linear_projection)
+                    cfg.transformer_layers_per_block, add_up, groups, cfg.use_linear_projection,
+                    attn_implementation=impl)
             up.append(blk)
             prev = rev_ch[i]
         self.up_blocks = nn.ModuleList(up)
@@ -122,6 +136,34 @@ class UNetMultiviewCondition(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
+
+    @property
+    def attn_implementation(self) -> str:
+        return next(m.attn_implementation for m in self.modules() if isinstance(m, Attention))
+
+    @contextlib.contextmanager
+    def configured(self, attn_implementation: str | None = None, remat: bool | None = None):
+        """Run with another attention implementation and / or remat setting,
+        restored on exit (what ``clone(...)`` does for the flax module)."""
+        attns = [m for m in self.modules() if isinstance(m, Attention)]
+        saved = ([m.attn_implementation for m in attns], self.remat)
+        if attn_implementation is not None:
+            for m in attns:
+                m.attn_implementation = attn_implementation
+        if remat is not None:
+            self.remat = remat
+        try:
+            yield self
+        finally:
+            for m, impl in zip(attns, saved[0]):
+                m.attn_implementation = impl
+            self.remat = saved[1]
+
+    def _run(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass when remat is on."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
 
     def forward(
         self,
@@ -153,23 +195,27 @@ class UNetMultiviewCondition(nn.Module):
             if pose_features is None:
                 if skeletons is None:
                     raise ValueError("enable_pose_encoder requires skeletons or pose_features")
-                pose_features = self.pose_encoder(skeletons.to(dtype))
+                # full-resolution activations: recomputed under remat
+                pose_features = self._run(self.pose_encoder, skeletons.to(dtype))
             x = x + pose_features
 
         res_states = [x]
         for i, blk in enumerate(self.down_blocks):
             nf = num_frames if (n - i - 1) < cfg.num_3d_attn_blocks else 1
-            x, states = blk(x, emb, nf)
+            x, states = self._run(lambda x, emb, blk=blk, nf=nf: blk(x, emb, nf), x, emb)
             res_states.extend(states)
 
-        x = self.mid_block(x, emb, num_frames)
+        x = self._run(lambda x, emb: self.mid_block(x, emb, num_frames), x, emb)
 
         n_up = cfg.layers_per_block + 1
         for i, blk in enumerate(self.up_blocks):
             take = res_states[-n_up:]
             del res_states[-n_up:]
             nf = num_frames if i < cfg.num_3d_attn_blocks else 1
-            x = blk(x, take, emb, nf)
+            # each block gets its own list of skips: it pops from it, and
+            # under remat its body runs a second time on the same arguments
+            x = self._run(lambda x, emb, *skips, blk=blk, nf=nf: blk(x, list(skips), emb, nf),
+                          x, emb, *take)
 
         x = F.silu(self.conv_norm_out(x))
         return conv_nhwc(self.conv_out, x)

@@ -42,13 +42,15 @@ class DownBlock2D(nn.Module):
 class CrossAttnDownBlockMultiview(DownBlock2D):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int, num_heads: int,
                  num_layers: int = 2, transformer_layers: int = 1, add_downsample: bool = True,
-                 norm_groups: int = 32, use_linear_projection: bool = True):
+                 norm_groups: int = 32, use_linear_projection: bool = True,
+                 attn_implementation: str = "auto"):
         super().__init__(in_channels, out_channels, temb_channels, num_layers, add_downsample,
                          norm_groups)
         head_dim = out_channels // num_heads
         self.attentions = nn.ModuleList([
             TransformerMultiview(out_channels, num_heads, head_dim, transformer_layers,
-                                 norm_groups, use_linear_projection)
+                                 norm_groups, use_linear_projection,
+                                 attn_implementation=attn_implementation)
             for _ in range(num_layers)
         ])
 
@@ -66,7 +68,7 @@ class CrossAttnDownBlockMultiview(DownBlock2D):
 class UNetMidBlockMultiviewCrossAttn(nn.Module):
     def __init__(self, channels: int, temb_channels: int, num_heads: int, num_layers: int = 1,
                  transformer_layers: int = 1, norm_groups: int = 32,
-                 use_linear_projection: bool = True):
+                 use_linear_projection: bool = True, attn_implementation: str = "auto"):
         super().__init__()
         head_dim = channels // num_heads
         self.resnets = nn.ModuleList([
@@ -75,7 +77,7 @@ class UNetMidBlockMultiviewCrossAttn(nn.Module):
         ])
         self.attentions = nn.ModuleList([
             TransformerMultiview(channels, num_heads, head_dim, transformer_layers, norm_groups,
-                                 use_linear_projection)
+                                 use_linear_projection, attn_implementation=attn_implementation)
             for _ in range(num_layers)
         ])
 
@@ -115,13 +117,14 @@ class CrossAttnUpBlockMultiview(UpBlock2D):
     def __init__(self, in_channels: int, skip_channels: list[int], out_channels: int,
                  temb_channels: int, num_heads: int, transformer_layers: int = 1,
                  add_upsample: bool = True, norm_groups: int = 32,
-                 use_linear_projection: bool = True):
+                 use_linear_projection: bool = True, attn_implementation: str = "auto"):
         super().__init__(in_channels, skip_channels, out_channels, temb_channels, add_upsample,
                          norm_groups)
         head_dim = out_channels // num_heads
         self.attentions = nn.ModuleList([
             TransformerMultiview(out_channels, num_heads, head_dim, transformer_layers,
-                                 norm_groups, use_linear_projection)
+                                 norm_groups, use_linear_projection,
+                                 attn_implementation=attn_implementation)
             for _ in skip_channels
         ])
 

@@ -6,13 +6,16 @@ Every attention of the model goes through :func:`dot_product_attention` on
 in fp32, no mask. Head dims 64 and 512 go to their kernel wrappers, where
 the tensor's device picks the plain version (CPU) or the hand-written
 kernel (CUDA); any other head dim takes the plain version on the CPU and
-raises on CUDA.
+raises on CUDA. ``implementation="train"`` is the differentiable path:
+head dim 64 goes to :func:`flash_attention_train` (forward with logsumexp
+plus the hand-written dQ and dK/dV kernels) at any sequence length.
 """
 
 from __future__ import annotations
 
 import torch
 
+from diffuman4d_torch.ops.flash_backward import flash_attention_train
 from diffuman4d_torch.ops.flash_attention import (
     attention_plain,
     flash_attention_d64,
@@ -28,9 +31,20 @@ def dot_product_attention(
     implementation:
       * "math" -- the plain version (the JAX package's ``_xla_attention``)
       * "auto" -- plain on CPU; on CUDA the d=64 or d=512 kernel
+      * "train" -- differentiable: at d=64 the forward-with-logsumexp and
+        backward kernels on CUDA, their plain version on the CPU; any other
+        head dim is autograd through the plain version on the CPU and
+        raises on CUDA
     """
     if implementation == "math":
         return attention_plain(q, k, v)
+    if implementation == "train":
+        if q.shape[-1] == 64:
+            return flash_attention_train(q, k, v)
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v)
+        raise ValueError(f"no differentiable CUDA attention kernel for head dim "
+                         f"{q.shape[-1]} (have 64)")
     if implementation != "auto":
         raise ValueError(f"Unknown attention implementation: {implementation}")
     d = q.shape[-1]

@@ -7,14 +7,24 @@ bf16, fp32 prologue / accumulation / bias, output in ``x``'s dtype. It
 replaces the Pallas kernel ``_conv_kernel`` (via ``conv3x3`` ->
 ``_conv3x3_pallas``) with ``csrc/conv3x3.cu``. A CPU tensor takes
 :func:`conv3x3_plain`; a CUDA tensor launches the kernel or raises,
-counts the launch in ``conv3x3.launches`` and records its shape and
-epilogue variant in ``conv3x3.shapes``.
+counts the launch in ``conv3x3.launches`` and, per shape and epilogue
+variant, in the counter ``conv3x3.shapes``.
+
+The op is differentiable. On the CPU autograd runs through the plain
+version. On CUDA the kernel launch sits in an ``autograd.Function`` whose
+backward restates the JAX package's ``_conv3x3_p_bwd``: the prologue is
+recomputed, the input and weight gradients are stock convolution gradients
+on bf16 operands (library convolutions there too, not a kernel), and the
+SiLU / affine chain gives ``dx``, ``dscale``, ``dshift``; ``dbias`` and
+``dresidual`` come from the cotangent.
 
 Weights are in PyTorch's ``(Cout, Cin, 3, 3)`` layout, as the port's
 ``nn.Conv2d`` modules hold them.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +90,9 @@ def conv3x3(
         raise ValueError("conv3x3: scale and shift go together")
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, bias, scale, shift, residual, silu=silu)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias, scale, shift, residual)):
+        return _Conv3x3.apply(x, w, bias, scale, shift, residual, silu)
     B, H, W, cin = x.shape
     cout = w.shape[0]
     if w.shape != (cout, cin, 3, 3) or bias.shape != (cout,):
@@ -120,13 +133,67 @@ def conv3x3(
                 out.data_ptr(), B, H, W, cin, cout, int(silu), stream)
     cuda_build.check(rc, "conv3x3_fwd")
     conv3x3.launches += 1
-    conv3x3.shapes.add((B, H, W, cin, cout, sc is not None, bool(silu), res is not None))
+    conv3x3.shapes[(B, H, W, cin, cout, sc is not None, bool(silu), res is not None)] += 1
     return out.to(x.dtype)
 
 
-# launch count, and the (B, H, W, Cin, Cout, affine, silu, residual) of each launch
+# launch count, in total and per (B, H, W, Cin, Cout, affine, silu, residual)
 conv3x3.launches = 0
-conv3x3.shapes = set()
+conv3x3.shapes = Counter()
+
+
+class _Conv3x3(torch.autograd.Function):
+    """The kernel launch with the backward of ``_conv3x3_p_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, scale, shift, residual, silu):
+        ctx.save_for_backward(x, w, scale, shift)
+        ctx.silu = silu
+        ctx.bias_dtype = bias.dtype
+        ctx.res_dtype = None if residual is None else residual.dtype
+        with torch.no_grad():
+            return conv3x3(x, w, bias, scale, shift, residual, silu=silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, shift = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        return conv3x3_backward(x, w, scale, shift, g, ctx.silu, ctx.bias_dtype, ctx.res_dtype,
+                                needs) + (None,)
+
+
+def conv3x3_backward(x, w, scale, shift, g, silu: bool, bias_dtype, res_dtype, needs=(True,) * 6):
+    """(dx, dw, dbias, dscale, dshift, dresidual) of :func:`conv3x3` for the
+    cotangent ``g``: bf16 operands and fp32 accumulation in both convolution
+    gradients (their results come back in bf16, as every gradient of a bf16
+    tensor does here), fp32 for the SiLU / affine chain."""
+    wb = w.to(torch.bfloat16)
+    xb32 = x.to(torch.bfloat16).float()
+    affine = scale is not None
+    pre = xb32 * scale[:, None, None, :].float() + shift[:, None, None, :].float() \
+        if affine else xb32
+    sig = torch.sigmoid(pre) if silu else None
+    h = (pre * sig if silu else pre).to(torch.bfloat16)
+    gb = g.to(torch.bfloat16)
+    dbias = g.float().sum(dim=(0, 1, 2)).to(bias_dtype) if needs[2] else None
+    dres = g.to(res_dtype) if res_dtype is not None and needs[5] else None
+    g_nchw = gb.permute(0, 3, 1, 2)
+    dw = None
+    if needs[1]:
+        dw = torch.nn.grad.conv2d_weight(h.permute(0, 3, 1, 2), w.shape, g_nchw,
+                                         padding=1).to(w.dtype)
+    dx = dscale = dshift = None
+    if needs[0] or (affine and (needs[3] or needs[4])):
+        dh = torch.nn.grad.conv2d_input(xb32.permute(0, 3, 1, 2).shape, wb, g_nchw,
+                                        padding=1).permute(0, 2, 3, 1).float()
+        dpre = dh * (sig * (1.0 + pre * (1.0 - sig))) if silu else dh
+        if affine:
+            dscale = (dpre * xb32).sum(dim=(1, 2)).to(scale.dtype)
+            dshift = dpre.sum(dim=(1, 2)).to(shift.dtype)
+            dx = (dpre * scale[:, None, None, :].float()).to(x.dtype)
+        else:
+            dx = dpre.to(x.dtype)
+    return dx, dw, dbias, dscale, dshift, dres
 
 
 def groupnorm_affine(

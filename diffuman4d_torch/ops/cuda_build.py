@@ -6,7 +6,7 @@ root (the hash covers the sources, the shared headers and the flags, so an
 edited kernel is rebuilt) and loaded with ``ctypes``. Nothing is built at
 import time: the first wrapper call builds what it needs, and
 :func:`build` compiles several sources in parallel (one ``nvcc`` each).
-Each library exports one C entry point that returns a ``cudaError_t``.
+Every C entry point returns a ``cudaError_t``.
 """
 
 from __future__ import annotations
@@ -22,11 +22,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# library -> (C entry point, its argument types): pointers and the stream
+# library -> {C entry point: its argument types}: pointers and the stream
 # as void*, sizes as int
 ENTRIES = {
-    "flash_attn": ("flash_attn_fwd", [_PTR] * 4 + [_INT] * 5 + [_PTR]),
-    "conv3x3": ("conv3x3_fwd", [_PTR] * 7 + [_INT] * 6 + [_PTR]),
+    "flash_attn": {
+        "flash_attn_fwd": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+        "flash_attn_fwd_lse": [_PTR] * 5 + [_INT] * 4 + [_PTR],
+    },
+    "conv3x3": {"conv3x3_fwd": [_PTR] * 7 + [_INT] * 6 + [_PTR]},
+    "flash_attn_bwd": {
+        "flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+        "flash_attn_bwd_dkdv": [_PTR] * 8 + [_INT] * 4 + [_PTR],
+    },
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = (
@@ -84,12 +91,18 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 
 @functools.cache
-def entry(name: str):
-    """The C entry point of kernel library ``name`` (built and loaded on
-    first use), with its argument and return types set."""
-    fn_name, argtypes = ENTRIES[name]
-    fn = getattr(ctypes.CDLL(str(build([name])[name])), fn_name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+def _library(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build([name])[name]))
+
+
+@functools.cache
+def entry(name: str, fn_name: str | None = None):
+    """C entry point ``fn_name`` (default: the first listed) of kernel
+    library ``name`` (built and loaded on first use), with its argument and
+    return types set."""
+    fn_name = fn_name or next(iter(ENTRIES[name]))
+    fn = getattr(_library(name), fn_name)
+    fn.argtypes, fn.restype = ENTRIES[name][fn_name], ctypes.c_int
     return fn
 
 

@@ -13,11 +13,13 @@ Semantics (all three): O = softmax(Q K^T / sqrt(d)) V per (batch, head) on
 ``(B, S, H, D)``, non-causal, unmasked, fp32 max / normaliser, P rounded to
 the input dtype for the PV product, fp32 accumulation. A CPU tensor takes
 :func:`attention_plain`; a CUDA tensor launches the kernel or raises.
-Each wrapper counts its launches in ``.launches`` and records the
-``(B, Sq, Sk, H)`` it launched at in ``.shapes``.
+Each wrapper counts its launches in ``.launches`` and, per
+``(B, Sq, Sk, H)`` it launched at, in the counter ``.shapes``.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -61,7 +63,7 @@ def _launch(wrapper, q, k, v, head_dim: int) -> torch.Tensor:
                 B, H, Sq, k.shape[1], D, stream)
     cuda_build.check(rc, "flash_attn_fwd")
     wrapper.launches += 1
-    wrapper.shapes.add((B, Sq, k.shape[1], H))
+    wrapper.shapes[(B, Sq, k.shape[1], H)] += 1
     return out
 
 
@@ -81,7 +83,7 @@ def flash_attention_d512(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     return _launch(flash_attention_d512, q, k, v, 512)
 
 
-# each wrapper counts its launches and keeps the (B, Sq, Sk, H) of each
+# each wrapper counts its launches, in total and per (B, Sq, Sk, H)
 for _wrapper in (flash_attention_d64, flash_attention_d512):
     _wrapper.launches = 0
-    _wrapper.shapes = set()
+    _wrapper.shapes = Counter()

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from diffuman4d_tpu.sampling.windows import step_counts
+from diffuman4d_torch.sampling.windows import step_counts
 from diffuman4d_torch.data.rays import calc_plucker_embeds_lowres
 from diffuman4d_torch.models.unet import UNetMultiviewCondition
 from diffuman4d_torch.models.vae import AutoencoderKL

@@ -15,8 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from diffuman4d_tpu.sampling.outputs import check_sampling_results, save_final_images
-from diffuman4d_tpu.sampling.windows import build_windows
+from diffuman4d_torch.sampling.outputs import check_sampling_results, save_final_images
+from diffuman4d_torch.sampling.windows import build_windows
 from diffuman4d_torch.data import Sample, SpaTemDataset
 from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
 

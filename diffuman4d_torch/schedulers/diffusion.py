@@ -118,6 +118,22 @@ class Scheduler:
         """Identity for DDIM."""
         return sample
 
+    def _sqrt_alpha_pair(self, sample: torch.Tensor, timesteps: torch.Tensor):
+        a = self.alphas_cumprod.to(sample.device)[timesteps.long()]
+        return _bcast(torch.sqrt(a), sample), _bcast(torch.sqrt(1.0 - a), sample)
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) forward noising (training), fp32 inside."""
+        sa, sb = self._sqrt_alpha_pair(sample, timesteps)
+        return (sa * sample.float() + sb * noise.float()).to(sample.dtype)
+
+    def velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: v = sqrt(a) eps - sqrt(1 - a) x0."""
+        sa, sb = self._sqrt_alpha_pair(sample, timesteps)
+        return (sa * noise.float() - sb * sample.float()).to(sample.dtype)
+
     def step(
         self,
         model_output: torch.Tensor,  # (B, ...) eps prediction

@@ -82,6 +82,80 @@ def test_flash_attention_rejects_what_it_cannot_take(gen):
         fa.flash_attention_d512(qb, qb, qb)  # wrong head dim
 
 
+def _train_inputs(gen, B, Sq, Sk, H):
+    """q, k, v, dO in bf16; batch row 0 near-uniform, rows 1+ peaked logits."""
+    q = _randn(gen, B, Sq, H, 64)
+    q[1:] *= 3.0
+    return (q.bfloat16(), _randn(gen, B, Sk, H, 64).bfloat16(),
+            _randn(gen, B, Sk, H, 64).bfloat16(), _randn(gen, B, Sq, H, 64).bfloat16())
+
+
+def _row_rel_err(got, want):
+    """Largest error of each batch row over its largest reference entry."""
+    dims = tuple(range(1, want.dim()))
+    return ((got.float() - want.float()).abs().amax(dim=dims)
+            / want.float().abs().amax(dim=dims)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H", [(2, 77, 77, 3), (2, 130, 190, 2), (3, 64, 64, 1),
+                                       (2, 200, 50, 2), (1, 1, 300, 1)])
+def test_flash_train_kernels_match_plain(gen, B, Sq, Sk, H):
+    """B5 (out, L2), B6 (dK, dV), B7 (dQ) each against its plain version on
+    the same inputs, ragged and Sq != Sk."""
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    q, k, v, dout = _train_inputs(gen, B, Sq, Sk, H)
+    qs = fb.scale_q(q)
+    counts = [f.launches for f in (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)]
+    out, l2 = fb.flash_fwd_lse(qs, k, v)
+    out_p, l2_p = fb.flash_fwd_lse_plain(qs, k, v)
+    # bf16 outputs: 4 ulps of the row's largest entry; L2 is fp32, sums differ in order
+    assert _row_rel_err(out, out_p) <= 2 ** -5
+    assert (l2 - l2_p).abs().max().item() <= 1e-3
+    delta = fb.attention_delta(out_p, dout)
+    dk, dv = fb.flash_bwd_dkdv(qs, k, v, dout, l2_p, delta)
+    dq = fb.flash_bwd_dq(qs, k, v, dout, l2_p, delta)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)] == [
+        c + 1 for c in counts]
+    assert (B, Sq, Sk, H) in fb.flash_bwd_dq.shapes
+    dk_p, dv_p = fb.flash_bwd_dkdv_plain(qs, k, v, dout, l2_p, delta)
+    dq_p = fb.flash_bwd_dq_plain(qs, k, v, dout, l2_p, delta)
+    # same roundings on both sides (bf16 P and dS, fp32 sums in another
+    # order): 4 bf16 ulps of each batch row's largest gradient entry
+    for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        assert torch.isfinite(got).all(), name
+        assert _row_rel_err(got, want) <= 2 ** -5, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_train_autograd_and_repeatable(gen):
+    """The autograd Function end to end (non-contiguous dO included) against
+    fp32 autograd through plain attention, and bit-equal across two runs."""
+    from diffuman4d_torch.ops import flash_attention as fa
+    from diffuman4d_torch.ops.attention import dot_product_attention
+
+    q, k, v, _ = _train_inputs(gen, 2, 150, 150, 3)
+    w = _randn(gen, 2, 3, 150, 64)  # (B, H, S, D): the cotangent arrives permuted
+
+    def grads(fn, *xs):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        (fn(*xs).float().permute(0, 2, 1, 3) * w).sum().backward()
+        return [x.grad for x in xs]
+
+    got = grads(lambda *a: dot_product_attention(*a, implementation="train"), q, k, v)
+    again = grads(lambda *a: dot_product_attention(*a, implementation="train"), q, k, v)
+    want = grads(fa.attention_plain, q.float(), k.float(), v.float())
+    for g, g2, r in zip(got, again, want):
+        assert torch.equal(g, g2)
+        # bf16 kernel vs fp32 reference: bf16 resolution of the largest entry,
+        # plus the bf16-rounded softmax scale of the base-2 form
+        assert _row_rel_err(g, r) <= 2 ** -4
+    with pytest.raises(ValueError):
+        dot_product_attention(q.float(), k.float(), v.float(), implementation="train")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,cin,cout,affine,res", [
     (2, 13, 11, 40, 24, True, True),

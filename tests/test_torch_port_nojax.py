@@ -1,9 +1,12 @@
-"""The port never imports jax or flax.
+"""The port never imports jax, flax, optax, orbax or the JAX package.
 
 ``tests/conftest.py`` imports jax into this process, so the check runs in a
-fresh interpreter in which ``import jax`` / ``import flax`` fail: it builds
-a tiny random-weight model with the port and runs one demo_3d spatial task
-through the port's sampler on a synthetic scene, end to end on the CPU."""
+fresh interpreter in which ``import jax`` / ``flax`` / ``optax`` / ``orbax``
+fail: it builds a tiny random-weight model with the port, runs one demo_3d
+spatial task through the port's sampler on a synthetic scene and then two
+steps of the port's training loop, end to end on the CPU, and finally
+checks that no module of those packages or of ``diffuman4d_tpu`` was
+loaded."""
 
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = textwrap.dedent("""
     import sys, tempfile
-    sys.modules["jax"] = None
-    sys.modules["flax"] = None
+    for blocked in ("jax", "flax", "optax", "orbax"):
+        sys.modules[blocked] = None
 
     import numpy as np
     import torch
@@ -48,7 +51,25 @@ SCRIPT = textwrap.dedent("""
         sampler.execute_tasks()
         assert torch.isfinite(sampler.grid_latents).all()
         assert sorted(set(sampler.grid_t_idx.ravel().tolist())) == [0, 2]
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+
+        # the train path: two steps (one spatial, one temporal window batch)
+        from diffuman4d_torch.training.data import WindowBatcher, WindowBatcherConfig
+        from diffuman4d_torch.training.loop import LoopConfig, train
+        from diffuman4d_torch.training.trainer import TrainConfig
+
+        make_synthetic_scene(tmp + "/t", "scene0", num_cams=6, num_frames=2, image_size=64)
+        batcher = WindowBatcher(
+            SpaTemDataset(data_dir=tmp + "/t", scene_label="scene0", height=64, width=64),
+            WindowBatcherConfig(window_size=2, tem_labels=["000000", "000001"],
+                                input_spa_labels=["00", "03"]))
+        before = unet.conv_in.weight.detach().clone()
+        state = train(pipe, batcher, LoopConfig(steps=2, window_size=2, out_dir=tmp + "/run"),
+                      TrainConfig(learning_rate=1e-3))
+        assert state.step == 2 and not torch.equal(before, unet.conv_in.weight)
+        assert all(torch.isfinite(p).all() for p in state.params.values())
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                           "diffuman4d_tpu")
                     and sys.modules[m] is not None)
     assert not loaded, loaded
     print("PORT_OK")
