@@ -4,11 +4,21 @@
     python3 chip_smoke.py                    # every phase, as a release check
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
     python3 chip_smoke.py --phases build,train,kernels   # the train path only
+    python3 chip_smoke.py --phases build,tune,kernels    # the attention sweep only
 
 Phases:
 
 1. ``build``: compile every CUDA kernel of ``diffuman4d_torch/csrc`` with
    ``nvcc`` for sm_90a into ``build/`` (one ``nvcc`` per source, in parallel).
+1b. ``tune``: the attention tuner's entry point
+   (``diffuman4d_torch.tune_attention.main``) on six hot shapes
+   (``TUNE_SHAPES``), writing a table under ``build/smoke/``: every
+   candidate kernel and block size is timed, the single-pass (B8), batched
+   single-pass (B9) and two-level (B10) kernels among them. Counters are
+   zeroed just before it and read just after: each of the three must have
+   launched, and no candidate may have failed. Its winners are printed
+   beside the committed table's (a different winner is reported, not
+   failed: another card's clocks are no fault of the program).
 2. ``reference``: the full-width UNet on one small CFG window and the VAE
    decoder on one small latent, each run once through the kernels and once
    with every kernel swapped for its plain version; the outputs must agree.
@@ -20,9 +30,13 @@ Phases:
    window 12 (CFG batch 32 at 128^2 latents, as in production demo_3d),
    stride 1 (the sampler requires the frame count, here 1, to be a
    multiple of the stride), one round, DDIM, CFG 2.0, random bf16 weights
-   from a seed: 12 windows, 12 steps per target, 12 decoded images. Launch
-   counters (and the wrappers' records of launched shapes) are zeroed just
-   before it and read just after: every kernel must have run.
+   from a seed: 12 windows, 12 steps per target, 12 decoded images. Its
+   attention follows the committed dispatch table
+   (``diffuman4d_torch/ops/attention_table.json``). Launch counters (and
+   the wrappers' records of launched shapes) are zeroed just before it and
+   read just after: every launch must be the one the table routes its shape
+   to, every kernel the table routes the slice's attention shapes to must
+   have run, and so must the fused conv.
 4. ``train``: three optimiser steps of the full-width UNet (0.87 B
    parameters, fp32 masters, bf16 compute, per-block remat, AdamW) on one
    window batch of the synthetic scene through ``WindowBatcher`` +
@@ -36,7 +50,8 @@ Phases:
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
    the card's bound for the work, at a fixed list of the paths' shapes plus
-   every (shape, epilogue variant) the slice and the train phase launched.
+   every (shape, epilogue variant or block sizes) the tune, slice and train
+   phases launched.
    Where the plain attention cannot hold the S x S scores it is compared on
    a random subset of query rows against the full K/V and timed
    query-chunked; dK/dV are then compared with Q and dO cut to that subset
@@ -65,7 +80,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "reference", "slice", "train", "kernels")
+PHASES = ("build", "tune", "reference", "slice", "train", "kernels")
 EXTRA_PHASES = ("profile",)  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -78,7 +93,20 @@ ATTN64_SHAPES = [
     (32, 1024, 20),  # per-frame, 32^2
     (2, 4096, 20),  # 3D, 16^2 mid block
 ]
+# the slice's attention shapes at head dim 64: the above and the per-frame
+# 16^2 mid block
+SLICE_ATTN64_SHAPES = ATTN64_SHAPES + [(32, 256, 20)]
 ATTN512_SHAPES = [(2, 16384, 1)]  # VAE mid block at 128^2 latents
+# hot shapes of the tuner timed by the tune phase: the per-frame 16^2, 32^2
+# and 64^2 attention, the 3D 16^2 mid block and, where the two-level kernel
+# was meant to win, the 3D 32^2 and 64^2 levels
+TUNE_SHAPES = "2d@16sq_mid,2d@32sq,2d@64sq,3d@16sq_mid,3d_spatial@32sq,3d_spatial@64sq"
+# the port's attention kernels (flash_attention.KERNELS) by their names in
+# the results and the kernels line
+ATTN_NAMES = {"flash_d64": "flash_fwd_d64", "flash_d512": "flash_fwd_d512",
+              "single_pass": "flash_fwd_single_pass",
+              "single_pass_batched": "flash_fwd_single_pass_batched",
+              "two_level": "flash_fwd_two_level"}
 # (B, H, W, Cin, Cout): the VAE stages at 1024^2 images, and two resnets
 # that change the channel count
 CONV_SHAPES = [
@@ -207,12 +235,23 @@ def _query_chunk(B: int, S: int, H: int, budget_bytes: float = 12e9) -> int:
     return max(16, min(S, 1 << max(4, int(math.log2(max(c, 1))))))
 
 
-def check_attention(B: int, S: int, Sk: int, H: int, D: int, gen) -> dict:
+def check_attention(B: int, S: int, Sk: int, H: int, D: int, gen, kernel: str | None = None,
+                    blocks: tuple = (), cache: dict | None = None) -> dict:
+    """Attention kernel ``kernel`` (a key of ``flash_attention.KERNELS``;
+    default: the one of head dim D) at block sizes ``blocks`` against the
+    plain version, with both times, the library's and the bound. ``cache``
+    keeps the plain and library times per shape for the next block sizes."""
     import torch
 
     from diffuman4d_torch.ops import flash_attention as fa
 
-    fn = fa.flash_attention_d64 if D == 64 else fa.flash_attention_d512
+    kernel = kernel or f"flash_d{D}"
+    kw = dict(zip(fa.BLOCK_PARAMS[kernel], blocks))
+    wrapper = fa.KERNELS[kernel]
+
+    def fn(q, k, v):
+        return wrapper(q, k, v, **kw)
+
     q = torch.randn((B, S, H, D), generator=gen, device="cuda")
     q[1:] *= ATTN_PEAK
     q = q.bfloat16()
@@ -231,21 +270,26 @@ def check_attention(B: int, S: int, Sk: int, H: int, D: int, gen) -> dict:
         for i in range(0, S, c):
             fa.attention_plain(q[:, i : i + c], k, v)
 
-    plain_ms = cuda_ms(plain_chunked, iters=1, warmup=0 if S >= 16384 else 1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D) views
-    library_ms = try_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
-                        iters=3 if S >= 16384 else 10)
+    cache = {} if cache is None else cache
+    if (B, S, Sk, H, D) not in cache:
+        plain_ms = cuda_ms(plain_chunked, iters=1, warmup=0 if S >= 16384 else 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D) views
+        library_ms = try_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+                            iters=3 if S >= 16384 else 10)
+        cache[(B, S, Sk, H, D)] = plain_ms, library_ms
+    plain_ms, library_ms = cache[(B, S, Sk, H, D)]
     flop = 4.0 * B * H * S * Sk * D
-    shape = f"B{B}xS{S}xH{H}xD{D}" + (f"xSk{Sk}" if Sk != S else "")
-    res = {"shape": shape, "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "tflops": flop / ms / 1e9,
+    shape = (f"B{B}xS{S}xH{H}xD{D}" + (f"xSk{Sk}" if Sk != S else "")
+             + "".join(f":{n}{b}" for n, b in kw.items()))
+    res = {"shape": shape, "flop": flop, "max_abs_err": err, "rel_err": rel, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "tflops": flop / ms / 1e9,
            "checked_rows": int(rows.numel()),
            **bound(flop, 2.0 * (2 * q.numel() + 2 * k.numel()))}
-    log(f"  attention {shape}: err {err:.3e} (rel {rel:.3e}, tol {ATTN_REL_TOL:.3e})  "
+    log(f"  {kernel} {shape}: err {err:.3e} (rel {rel:.3e}, tol {ATTN_REL_TOL:.3e})  "
         f"kernel {ms:.3f} ms ({res['tflops']:.1f} TFLOP/s)  plain {plain_ms:.3f} ms  "
         f"library {library_ms} ms  bound {res['bound_ms']:.3f} ms  rows {rows.numel()}")
     if not rel <= ATTN_REL_TOL:
-        raise AssertionError(f"attention {shape}: error {rel} of the largest output "
+        raise AssertionError(f"{kernel} {shape}: error {rel} of the largest output "
                              f"> {ATTN_REL_TOL}")
     return res
 
@@ -466,13 +510,20 @@ def phase_kernels(launched: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False  # the plain conv runs in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"flash_fwd_d64": [], "flash_fwd_d512": [], "conv3x3": [], "flash_fwd_lse": [],
-               "flash_bwd_dkdv": [], "flash_bwd_dq": [], "conv3x3_grad": []}
-    for name, D, fixed in (("flash_fwd_d64", 64, ATTN64_SHAPES),
-                           ("flash_fwd_d512", 512, ATTN512_SHAPES)):
-        for B, S, Sk, H in _ordered([(B, S, S, H) for B, S, H in fixed], launched.get(name, ())):
-            results[name].append(check_attention(B, S, Sk, H, D, gen))
+    results = {name: [] for name in ATTN_NAMES.values()}
+    results.update({"conv3x3": [], "flash_fwd_lse": [], "flash_bwd_dkdv": [], "flash_bwd_dq": [],
+                    "conv3x3_grad": []})
+    cache: dict = {}  # plain and library times per attention shape
+    for kernel, name in ATTN_NAMES.items():
+        D = 512 if kernel == "flash_d512" else 64
+        fixed = {"flash_d64": ATTN64_SHAPES, "flash_d512": ATTN512_SHAPES}.get(kernel, [])
+        for B, S, Sk, H, *blocks in _ordered([(B, S, S, H) for B, S, H in fixed],
+                                             map(tuple, launched.get(name, ()))):
+            results[name].append(check_attention(B, S, Sk, H, D, gen, kernel, tuple(blocks),
+                                                 cache))
             torch.cuda.empty_cache()
+        if not fixed:  # B8-B10: the heaviest launch first, fastest block sizes first
+            results[name].sort(key=lambda r: (-r["flop"], r["ms"]))
     fixed = [shape + flags for shape in CONV_SHAPES for flags in CONV_VARIANTS.values()]
     for shape in _ordered(fixed, launched.get("conv3x3", ())):
         results["conv3x3"].append(check_conv(*shape, gen))
@@ -531,9 +582,9 @@ def phase_reference(unet, vae) -> dict:
     pose = 0.1 * torch.randn((2 * L, 32, 32, 320), generator=gen, device="cuda").bfloat16()
     t = torch.full((2 * L,), 901, device="cuda")
     z = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").bfloat16()
-    def counts():
-        return (fa.flash_attention_d64.launches, fa.flash_attention_d512.launches,
-                conv.conv3x3.launches)
+    def counts():  # d = 64 attention (whichever kernel the table picks), d = 512, conv
+        return (sum(f.launches for n, f in fa.KERNELS.items() if n != "flash_d512"),
+                fa.flash_attention_d512.launches, conv.conv3x3.launches)
 
     before = counts()
     with torch.no_grad():
@@ -633,6 +684,7 @@ PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
     ("flash_bwd_dkdv_kernel", "flash attention dK/dV (csrc)"),
     ("flash_bwd_dq_kernel", "flash attention dQ (csrc)"),
     ("flash_fwd_kernel", "flash attention (csrc)"),
+    ("single_pass_kernel", "single-pass attention (csrc)"),
     ("conv3x3_kernel", "fused conv3x3 (csrc)"),
     ("fprop|conv|implicit|winograd", "cuDNN conv"),
     ("gemm|nvjet|xmma|cutlass|sm90", "GEMM"),
@@ -787,7 +839,7 @@ def phase_train(unet, vae, work: Path) -> dict:
 
     wrappers = {"flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd_dkdv": fb.flash_bwd_dkdv,
                 "flash_bwd_dq": fb.flash_bwd_dq, "conv3x3": conv.conv3x3,
-                "flash_fwd_d512": fa.flash_attention_d512, "flash_fwd_d64": fa.flash_attention_d64}
+                **{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}}
     runs = []
     for run in range(2):
         sync_module(unet, start)
@@ -833,7 +885,7 @@ def phase_train(unet, vae, work: Path) -> dict:
               "flash_bwd_dkdv": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
               "flash_bwd_dq": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
               "conv3x3": 2 * TRAIN_STEPS,  # the 128^2 x 640 upsampler, forward and recompute
-              "flash_fwd_d512": 0, "flash_fwd_d64": 0}
+              **{name: 0 for name in ATTN_NAMES.values()}}
     if list(batch["latents_x0"].shape) != [1, TRAIN_L, 128, 128, 4] or n_params < 0.8e9:
         raise AssertionError(f"train: not the full-width step: {res['latents']}, {n_params}")
     if steps != expect:
@@ -851,6 +903,48 @@ def phase_train(unet, vae, work: Path) -> dict:
     if not res["repeat_bits"][0]:
         raise AssertionError(f"train: the first step does not repeat: {first['losses']} vs "
                              f"{runs[1]['losses']}")
+    return res
+
+
+def phase_tune(work: Path) -> dict:
+    """The tuner's entry point on TUNE_SHAPES into ``work``; its winners
+    beside the committed table's."""
+    from diffuman4d_torch import tune_attention
+    from diffuman4d_torch.ops import attention as attn, flash_attention as fa
+
+    work.mkdir(parents=True, exist_ok=True)
+    out = work / "attention_table.json"
+    _reset(fa.KERNELS.values())
+    t0 = time.perf_counter()
+    rc = tune_attention.main(["--shapes", TUNE_SHAPES, "--out", str(out)])
+    secs = time.perf_counter() - t0
+    launches = {ATTN_NAMES[n]: f.launches for n, f in fa.KERNELS.items()}
+    launches.update(_d64_split(fa.flash_attention_d64.shapes))
+    shapes = {ATTN_NAMES[n]: sorted(f.shapes) for n, f in fa.KERNELS.items()}
+    table = json.loads(out.read_text())
+    committed = {e["name"]: e for e in attn._dispatch_table()}
+    winners = {}
+    for e in table["entries"]:
+        c = committed.get(e["name"], {})
+        mine = (e["impl"], e["block_q"], e.get("block_k_major"), e["block_k"], e.get("block_b"))
+        theirs = (c.get("impl"), c.get("block_q"), c.get("block_k_major"), c.get("block_k"),
+                  c.get("block_b"))
+        winners[e["name"]] = {"this_run": mine, "tflops": e["tflops"], "committed": theirs,
+                              "committed_tflops": c.get("tflops"), "agree": mine == theirs}
+        log(f"  winner {e['name']}: this run {mine} {e['tflops']} TFLOP/s, committed {theirs} "
+            f"{c.get('tflops')} TFLOP/s" + ("" if mine == theirs else "  (differs)"))
+    res = {"tune_s": secs, "device": table.get("device"), "power_limit": table.get("power_limit"),
+           "launches": launches, "shapes": shapes, "winners": winners}
+    log(f"tune: {secs:.1f} s, launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"tune: the tuner exited {rc}")
+    failed = {e["name"]: e["candidates_failed"] for e in table["entries"]
+              if e["candidates_failed"]}
+    if failed or len(table["entries"]) != len(TUNE_SHAPES.split(",")):
+        raise AssertionError(f"tune: failed candidates {failed}, {len(table['entries'])} entries")
+    for name in ("flash_fwd_single_pass", "flash_fwd_single_pass_batched", "flash_fwd_two_level"):
+        if not launches[name]:
+            raise AssertionError(f"tune: {name} never launched: {launches}")
     return res
 
 
@@ -886,8 +980,7 @@ def phase_slice(unet, vae, work: Path) -> dict:
     pipe.decode = lambda lat: decoded.append(decode(lat)) or decoded[-1]
 
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"flash_fwd_d64": fa.flash_attention_d64,
-                "flash_fwd_d512": fa.flash_attention_d512, "conv3x3": conv.conv3x3}
+    wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
     _reset(wrappers.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -896,17 +989,15 @@ def phase_slice(unet, vae, work: Path) -> dict:
     total_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
     shapes = {name: sorted(fn.shapes) for name, fn in wrappers.items()}
-    # the d = 64 forward serves two TPU kernels: 3D window attention (the CFG
-    # pair as batch 2) and per-frame attention (batch 2 L)
-    window = sum(n for (B, *_), n in fa.flash_attention_d64.shapes.items() if B <= 2)
-    launches["flash_fwd_d64_window"] = window
-    launches["flash_fwd_d64_frame"] = launches["flash_fwd_d64"] - window
+    launches.update(_d64_split(fa.flash_attention_d64.shapes))
+    routed = _check_routes(fa.KERNELS, [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     images = np.concatenate(decoded)
     jpgs = sorted((work / "out" / "images").rglob("*.jpg"))
     res = {"setup_s": setup_s, "total_s": total_s, "phases_s": phases, "peak_gb": peak_gb,
-           "launches": launches, "shapes": shapes, "windows": int(sampler._windows_for(
+           "launches": launches, "shapes": shapes, "routed": routed,
+           "windows": int(sampler._windows_for(
                sampler.all_tasks[0][0], 16).shape[0]),
            "decoded": list(images.shape), "jpgs": len(jpgs),
            "image_mean": float(images.mean()), "image_std": float(images.std())}
@@ -917,21 +1008,59 @@ def phase_slice(unet, vae, work: Path) -> dict:
         raise AssertionError(f"slice: {len(jpgs)} images on disk, expected 16")
     if not images.std() > 0:
         raise AssertionError("slice: decoded images are constant")
-    if min(launches.values()) == 0:
+    if not launches["conv3x3"] or not launches["flash_fwd_d512"]:
         raise AssertionError(f"slice: a kernel of the path never launched: {launches}")
     return res
+
+
+def _d64_split(shapes) -> dict:
+    """The d = 64 kernel serves two TPU kernels: 3D window attention (the
+    CFG pair as batch 2) and per-frame attention (batch 2 L)."""
+    window = sum(n for (B, *_), n in shapes.items() if B <= 2)
+    return {"flash_fwd_d64_window": window,
+            "flash_fwd_d64_frame": sum(shapes.values()) - window}
+
+
+def _check_routes(kernels: dict, expected) -> dict:
+    """Every attention launch recorded in ``kernels[name].shapes`` must be
+    the kernel and block sizes that ``route`` gives its shape, and each
+    shape of ``expected`` (B, S, Sk, H, D) must have been launched where it
+    routes. Returns {shape: "kernel(blocks)"} of ``expected``."""
+    from diffuman4d_torch.ops import attention as attn
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    for name, fn in kernels.items():
+        for B, S, Sk, H, *blocks in fn.shapes:
+            D = 512 if name == "flash_d512" else 64
+            want = attn.route((B, S, H, D), (B, Sk, H, D))
+            if want != (name, dict(zip(fa.BLOCK_PARAMS[name], blocks))):
+                raise AssertionError(f"attention B{B} S{S} Sk{Sk} H{H} ran on {name} {blocks}, "
+                                     f"the table routes it to {want}")
+    routed = {}
+    for B, S, Sk, H, D in expected:
+        name, params = attn.route((B, S, H, D), (B, Sk, H, D))
+        key = (B, S, Sk, H, *params.values())
+        if not kernels[name].shapes.get(key):
+            raise AssertionError(f"attention {key} routes to {name}, which never ran it")
+        routed[f"B{B}xS{S}xH{H}"] = f"{name}{tuple(params.values()) or ''}"
+    log(f"  routes: {routed}")
+    return routed
 
 
 # -------------------------------------------------------------------- main
 _FA = "diffuman4d_tpu/ops/flash_attention.py"
 _FB = "diffuman4d_tpu/ops/flash_backward.py"
 # name -> (source, the TPU kernel it replaces, results key of its checks,
-# index of its headline check, phase whose run counts its launches)
+# index of its headline check, phases whose runs count its launches: the
+# first in which it launched; B1/B2 run on the slice where the table routes
+# a shape to them and on the tune path as the base candidate)
 KERNEL_META = {
     "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn.cu",
-                             f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0, "slice"),
+                             f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0,
+                             ("slice", "tune")),
     "flash_fwd_d64_frame": ("diffuman4d_torch/csrc/flash_attn.cu",
-                            f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1, "slice"),
+                            f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
+                            ("slice", "tune")),
     "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FA}:54 (_flash_kernel)",
                        "flash_fwd_d512", 0, "slice"),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3.cu", "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)",
@@ -942,6 +1071,14 @@ KERNEL_META = {
                        "flash_bwd_dkdv", 0, "train"),
     "flash_bwd_dq": ("diffuman4d_torch/csrc/flash_attn_bwd.cu", f"{_FB}:205 (_dq_kernel)",
                      "flash_bwd_dq", 0, "train"),
+    "flash_fwd_single_pass": ("diffuman4d_torch/csrc/flash_attn_single.cu",
+                              f"{_FA}:463 (_flash_kernel_v5)", "flash_fwd_single_pass", 0,
+                              "tune"),
+    "flash_fwd_single_pass_batched": ("diffuman4d_torch/csrc/flash_attn_single.cu",
+                                      f"{_FA}:530 (_flash_kernel_v6)",
+                                      "flash_fwd_single_pass_batched", 0, "tune"),
+    "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FA}:96 (_flash_kernel_v2)",
+                            "flash_fwd_two_level", 0, "tune"),
 }
 
 
@@ -988,6 +1125,9 @@ def main() -> int:
         run("build", phase_build)
     work = ROOT / "build" / "smoke"
     shutil.rmtree(work, ignore_errors=True)
+    if "tune" in phases:
+        run("tune", phase_tune, work)
+        torch.cuda.empty_cache()
     if "reference" in phases:
         run("reference_train", phase_reference_train)
         torch.cuda.empty_cache()
@@ -1006,9 +1146,10 @@ def main() -> int:
         del unet, vae
         torch.cuda.empty_cache()
     if "kernels" in phases and "build" not in results["failed"]:
-        launched = dict(results.get("slice", {}).get("shapes", {}))
-        for name, shapes in results.get("train", {}).get("shapes", {}).items():
-            launched[name] = list(launched.get(name, ())) + list(shapes)
+        launched: dict = {}
+        for phase in ("tune", "slice", "train"):
+            for name, shapes in results.get(phase, {}).get("shapes", {}).items():
+                launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)
     results["wall_s"] = time.perf_counter() - t_start
 
@@ -1023,6 +1164,8 @@ def main() -> int:
     for name, (source, replaces, key, idx, phase) in KERNEL_META.items():
         checks = results.get("kernels", {}).get(key, [])
         head = checks[idx] if len(checks) > idx else {}
+        ran = [p for p in ((phase,) if isinstance(phase, str) else phase) if p in results]
+        phase = next((p for p in ran if results[p]["launches"].get(name)), ran[0] if ran else None)
         launches = results.get(phase, {}).get("launches", {}).get(name)
         if launches == 0 or ("kernels" in results and not head):
             log(f"chip_smoke: FAILED kernel {name}: {launches} launches on the {phase} path, "
@@ -1030,7 +1173,7 @@ def main() -> int:
             return 1
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches,
+            "launches": launches, "launches_phase": phase,
             "max_abs_err": max((c["max_abs_err"] for c in checks), default=None),
             **{k: head.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "shape")},

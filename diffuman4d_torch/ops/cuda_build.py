@@ -28,7 +28,9 @@ ENTRIES = {
     "flash_attn": {
         "flash_attn_fwd": [_PTR] * 4 + [_INT] * 5 + [_PTR],
         "flash_attn_fwd_lse": [_PTR] * 5 + [_INT] * 4 + [_PTR],
+        "flash_attn_fwd_two_level": [_PTR] * 4 + [_INT] * 7 + [_PTR],
     },
+    "flash_attn_single": {"flash_attn_single_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR]},
     "conv3x3": {"conv3x3_fwd": [_PTR] * 7 + [_INT] * 6 + [_PTR]},
     "flash_attn_bwd": {
         "flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR],

@@ -1,20 +1,32 @@
 """Flash attention on Hopper, with its plain PyTorch version beside it.
 
-Counterpart of ``diffuman4d_tpu/ops/flash_attention.py``. Two wrappers
-launch the one CUDA kernel of ``csrc/flash_attn.cu``:
+Counterpart of ``diffuman4d_tpu/ops/flash_attention.py``. Five wrappers
+launch the kernels of ``csrc/flash_attn.cu`` and ``csrc/flash_attn_single.cu``:
 
 * :func:`flash_attention_d64` replaces ``flash_attention_v4`` (the UNet's
   3D window attention) and ``flash_attention_v3`` (its per-frame
   attention); both compute the same function at head dim 64.
 * :func:`flash_attention_d512` replaces ``flash_attention`` (v1), the VAE
   mid-block attention at head dim 512.
+* :func:`flash_attention_single_pass` replaces ``flash_attention_v5``: the
+  whole key sequence in one block, no online softmax (Sk <= 256).
+* :func:`flash_attention_single_pass_batched` replaces
+  ``flash_attention_v6``: the same with ``block_b`` (batch * head) rows per
+  thread block.
+* :func:`flash_attention_two_level` replaces ``flash_attention_v2``:
+  online softmax over k-major tiles of ``block_k_major`` keys staged in
+  shared memory, walked in chunks of ``block_k`` keys.
 
-Semantics (all three): O = softmax(Q K^T / sqrt(d)) V per (batch, head) on
-``(B, S, H, D)``, non-causal, unmasked, fp32 max / normaliser, P rounded to
-the input dtype for the PV product, fp32 accumulation. A CPU tensor takes
-:func:`attention_plain`; a CUDA tensor launches the kernel or raises.
-Each wrapper counts its launches in ``.launches`` and, per
-``(B, Sq, Sk, H)`` it launched at, in the counter ``.shapes``.
+Semantics (all five): O = softmax(Q K^T / sqrt(d)) V per (batch, head) on
+``(B, S, H, D)``, non-causal, unmasked, the exact scale applied to fp32
+scores, fp32 max / normaliser, P rounded to the input dtype for the PV
+product, fp32 accumulation: the function of :func:`attention_plain`. (The
+TPU v3-v6 kernels fold a bf16-rounded scale into Q instead; see
+``ROADMAP.md`` section C.) Each wrapper checks the shapes and block sizes
+its kernel was built for and raises on others, on any device. Then a CPU
+tensor takes :func:`attention_plain`; a CUDA tensor launches the kernel or
+raises. Each wrapper counts its launches in ``.launches`` and, per
+``(B, Sq, Sk, H)`` plus its block sizes, in the counter ``.shapes``.
 """
 
 from __future__ import annotations
@@ -24,6 +36,41 @@ from collections import Counter
 import torch
 
 from diffuman4d_torch.ops import cuda_build
+
+# shared memory one thread block can have on the H100 (bytes)
+SMEM_PER_BLOCK = 232_448
+# single pass (B8/B9): query rows per (batch, head) row and block, i.e. 1, 2,
+# 4 or 8 warps of 16 rows; the whole key sequence in registers and shared
+# memory, so Sk <= 256; at most 8 warps per block
+SINGLE_PASS_BLOCK_Q = (16, 32, 64, 128)
+SINGLE_PASS_MAX_SK = 256
+SINGLE_PASS_MAX_WARPS = 8
+# two-level (B10): the (block_q, block_k_major, block_k) built in csrc/flash_attn.cu
+TWO_LEVEL_CONFIGS = ((64, 128, 64), (64, 256, 64), (64, 256, 128),
+                     (128, 128, 64), (128, 256, 64), (128, 256, 128))
+
+
+def single_pass_ok(sk: int, block_q: int, d: int = 64, block_b: int = 1) -> bool:
+    """Whether the single-pass kernel (B8, and B9 with ``block_b`` > 1) was
+    built for this launch: head dim 64, 1 <= Sk <= 256 keys (their 16 x Sk
+    fp32 scores per warp live in registers), ``block_q`` one of
+    :data:`SINGLE_PASS_BLOCK_Q`, at most 8 warps per block, and each row's Q
+    tile, K and V (K/V padded to 128 or 256 keys) within a block's shared
+    memory. The dispatcher and the tuner both ask it, so a nearest-match
+    table lookup never routes a shape to a launch that fails (the role of
+    the JAX package's ``v5_vmem_ok``)."""
+    if d != 64 or not 1 <= sk <= SINGLE_PASS_MAX_SK or block_b < 1:
+        return False
+    if block_q not in SINGLE_PASS_BLOCK_Q or block_q // 16 * block_b > SINGLE_PASS_MAX_WARPS:
+        return False
+    sk_max = 128 if sk <= 128 else 256
+    return block_b * (block_q + 2 * sk_max) * d * 2 <= SMEM_PER_BLOCK
+
+
+def two_level_ok(d: int, block_q: int, block_k_major: int, block_k: int) -> bool:
+    """Whether the two-level kernel (B10) was built for these block sizes
+    (head dim 64, any Sq and Sk: ragged edges are masked)."""
+    return d == 64 and (block_q, block_k_major, block_k) in TWO_LEVEL_CONFIGS
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -37,53 +84,126 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return out.to(dtype)
 
 
-def _launch(wrapper, q, k, v, head_dim: int) -> torch.Tensor:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise ValueError(f"flash attention: {name} must be a bf16 CUDA tensor, got "
-                             f"{t.dtype} on {t.device}")
-        if t.dim() != 4 or t.shape[-1] != head_dim:
-            raise ValueError(f"flash attention: {name} shape {tuple(t.shape)} is not "
+def _check_shapes(q, k, v, head_dim: int) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 4 or x.shape[-1] != head_dim:
+            raise ValueError(f"flash attention: {name} shape {tuple(x.shape)} is not "
                              f"(B, S, H, {head_dim})")
-    B, Sq, H, D = q.shape
+    B, _, H, _ = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2] != H:
         raise ValueError(f"flash attention: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
+
+
+def _launch(wrapper, q, k, v, fn_name: str, c_args: tuple, blocks: tuple = (),
+            lib: str = "flash_attn"):
+    """Launch C entry ``fn_name`` of library ``lib`` on (q, k, v, out, B, H,
+    Sq, Sk, *c_args, stream) and count it under ``(B, Sq, Sk, H, *blocks)``."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+            raise ValueError(f"flash attention: {name} must be a bf16 CUDA tensor, got "
+                             f"{x.dtype} on {x.device}")
+    B, Sq, H, D = q.shape
     if B * H > 65535:
         raise ValueError(f"flash attention: B*H = {B * H} exceeds the grid limit")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    for t in (q, k, v, out):
-        if t.data_ptr() % 16:
+    for x in (q, k, v, out):
+        if x.data_ptr() % 16:
             raise ValueError("flash attention: tensors must be 16-byte aligned")
-    fn = cuda_build.entry("flash_attn")
+    fn = cuda_build.entry(lib, fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, Sq, k.shape[1], D, stream)
-    cuda_build.check(rc, "flash_attn_fwd")
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq, k.shape[1],
+                *c_args, stream)
+    cuda_build.check(rc, fn_name)
     wrapper.launches += 1
-    wrapper.shapes[(B, Sq, k.shape[1], H)] += 1
+    wrapper.shapes[(B, Sq, k.shape[1], H, *blocks)] += 1
     return out
 
 
 def flash_attention_d64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Head dim 64 (TPU kernels B1 ``_flash_kernel_v4`` and B2
     ``_flash_kernel_v3``). bf16 CUDA tensors launch the kernel."""
+    _check_shapes(q, k, v, 64)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _launch(flash_attention_d64, q, k, v, 64)
+    return _launch(flash_attention_d64, q, k, v, "flash_attn_fwd", (64,))
 
 
 def flash_attention_d512(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Head dim 512 (TPU kernel B3 ``_flash_kernel``, the VAE mid-block
     attention). bf16 CUDA tensors launch the kernel."""
+    _check_shapes(q, k, v, 512)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _launch(flash_attention_d512, q, k, v, 512)
+    return _launch(flash_attention_d512, q, k, v, "flash_attn_fwd", (512,))
 
 
-# each wrapper counts its launches, in total and per (B, Sq, Sk, H)
-for _wrapper in (flash_attention_d64, flash_attention_d512):
+def flash_attention_single_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                block_q: int = 64) -> torch.Tensor:
+    """Single KV pass at head dim 64 (TPU kernel B8 ``_flash_kernel_v5``):
+    ``block_q`` query rows per block, the whole key sequence at once. Raises
+    where :func:`single_pass_ok` refuses the launch."""
+    _check_shapes(q, k, v, 64)
+    if not single_pass_ok(k.shape[1], block_q):
+        raise ValueError(f"single-pass attention: not built for Sk={k.shape[1]}, "
+                         f"block_q={block_q} (Sk <= {SINGLE_PASS_MAX_SK}, block_q in "
+                         f"{SINGLE_PASS_BLOCK_Q})")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    return _launch(flash_attention_single_pass, q, k, v, "flash_attn_single_pass",
+                   (block_q, 1), (block_q,), lib="flash_attn_single")
+
+
+def flash_attention_single_pass_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        block_q: int = 32, block_b: int = 2) -> torch.Tensor:
+    """The single pass over ``block_b`` (batch * head) rows per block (TPU
+    kernel B9 ``_flash_kernel_v6``). ``block_b`` must divide B * H."""
+    _check_shapes(q, k, v, 64)
+    bh = q.shape[0] * q.shape[2]
+    if bh % block_b:
+        raise ValueError(f"single-pass attention: b*h = {bh} not divisible by block_b "
+                         f"{block_b}")
+    if not single_pass_ok(k.shape[1], block_q, 64, block_b):
+        raise ValueError(f"single-pass attention: not built for Sk={k.shape[1]}, "
+                         f"block_q={block_q}, block_b={block_b}")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    return _launch(flash_attention_single_pass_batched, q, k, v, "flash_attn_single_pass",
+                   (block_q, block_b), (block_q, block_b), lib="flash_attn_single")
+
+
+def flash_attention_two_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              block_q: int = 64, block_k_major: int = 256,
+                              block_k: int = 64) -> torch.Tensor:
+    """Two-level KV blocking at head dim 64 (TPU kernel B10
+    ``_flash_kernel_v2``): k-major tiles of ``block_k_major`` keys, inner
+    chunks of ``block_k``. Raises for block sizes not in
+    :data:`TWO_LEVEL_CONFIGS`; any Sq and Sk."""
+    _check_shapes(q, k, v, 64)
+    if not two_level_ok(64, block_q, block_k_major, block_k):
+        raise ValueError(f"two-level attention: not built for blocks ({block_q}, "
+                         f"{block_k_major}, {block_k}); have {TWO_LEVEL_CONFIGS}")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    blocks = (block_q, block_k_major, block_k)
+    return _launch(flash_attention_two_level, q, k, v, "flash_attn_fwd_two_level", blocks, blocks)
+
+
+# the port's attention kernels by their dispatch names, and the block-size
+# arguments of each (the order of the block sizes in its ``.shapes`` keys)
+KERNELS = {
+    "flash_d64": flash_attention_d64,
+    "flash_d512": flash_attention_d512,
+    "single_pass": flash_attention_single_pass,
+    "single_pass_batched": flash_attention_single_pass_batched,
+    "two_level": flash_attention_two_level,
+}
+BLOCK_PARAMS = {"flash_d64": (), "flash_d512": (), "single_pass": ("block_q",),
+                "single_pass_batched": ("block_q", "block_b"),
+                "two_level": ("block_q", "block_k_major", "block_k")}
+# each wrapper counts its launches, in total and per (B, Sq, Sk, H, *blocks)
+for _wrapper in KERNELS.values():
     _wrapper.launches = 0
     _wrapper.shapes = Counter()

@@ -59,9 +59,10 @@ def init_random_params(unet: UNetMultiviewCondition, vae: AutoencoderKL, seed: i
 
 
 def build_models(unet_config: UNetConfig = UNetConfig(), vae_config: VAEConfig = VAEConfig(),
-                 device: torch.device | str = "cpu", dtype: torch.dtype = torch.bfloat16,
+                 device: torch.device | str = "cuda", dtype: torch.dtype = torch.bfloat16,
                  seed: int = 0) -> tuple[UNetMultiviewCondition, AutoencoderKL]:
-    """Random-weight UNet and VAE on ``device`` in ``dtype``, eval mode.
+    """Random-weight UNet and VAE on ``device`` in ``dtype``, eval mode: on
+    the card unless the caller asks for the CPU (``device="cpu"``).
     Modules are created without initialisation (meta device) and filled on
     the target device, so a full-size model costs no host-side init. Conv
     weights are stored channels-last, the layout of the NHWC activations."""

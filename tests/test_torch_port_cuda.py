@@ -82,6 +82,104 @@ def test_flash_attention_rejects_what_it_cannot_take(gen):
         fa.flash_attention_d512(qb, qb, qb)  # wrong head dim
 
 
+def _attn_inputs(gen, B, Sq, Sk, H):
+    """q, k, v in bf16; batch row 0 near-uniform, rows 1+ peaked logits."""
+    q = _randn(gen, B, Sq, H, 64)
+    q[1:] *= 3.0
+    return q.bfloat16(), _randn(gen, B, Sk, H, 64).bfloat16(), _randn(gen, B, Sk, H, 64).bfloat16()
+
+
+def _batch_row_rel_err(got, want):
+    """Largest error of each batch row over its largest output."""
+    err = (got.float() - want.float()).abs().amax(dim=(1, 2, 3))
+    return (err / want.float().abs().amax(dim=(1, 2, 3))).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H", [(2, 77, 77, 3), (2, 130, 200, 2), (3, 256, 256, 1),
+                                       (2, 300, 17, 2)])
+@pytest.mark.parametrize("block_q", [16, 32, 64, 128])
+def test_flash_single_pass_matches_plain(gen, B, Sq, Sk, H, block_q):
+    """B8 at every block_q, ragged, Sq != Sk, both key paddings (128, 256)."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
+    fn = fa.flash_attention_single_pass
+    before = fn.launches
+    got = fn(q, k, v, block_q=block_q)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and (B, Sq, Sk, H, block_q) in fn.shapes
+    # the unnormalised P is rounded to bf16 where the plain version rounds
+    # the normalised one: each batch row within 4 bf16 ulps of its largest output
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,block_q,block_b", [
+    (2, 50, 256, 3, 32, 2), (2, 50, 256, 3, 32, 3), (2, 100, 90, 3, 16, 6),
+    (4, 64, 128, 2, 64, 2), (1, 33, 120, 8, 16, 4)])
+def test_flash_single_pass_batched_matches_plain(gen, B, Sq, Sk, H, block_q, block_b):
+    """B9: block_b rows of (batch, head) per block, block_b dividing only B*H."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
+    fn = fa.flash_attention_single_pass_batched
+    got = fn(q, k, v, block_q=block_q, block_b=block_b)
+    torch.cuda.synchronize()
+    assert (B, Sq, Sk, H, block_q, block_b) in fn.shapes
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(64, 128, 64), (64, 256, 64), (64, 256, 128),
+                                    (128, 128, 64), (128, 256, 64), (128, 256, 128)])
+@pytest.mark.parametrize("B,Sq,Sk,H", [(2, 300, 530, 2), (2, 64, 64, 1), (1, 1000, 1000, 2)])
+def test_flash_two_level_matches_plain(gen, blocks, B, Sq, Sk, H):
+    """B10 at every built staging, with ragged k-major tiles and Sq != Sk."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
+    fn = fa.flash_attention_two_level
+    got = fn(q, k, v, *blocks)
+    torch.cuda.synchronize()
+    assert (B, Sq, Sk, H, *blocks) in fn.shapes
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+def test_single_pass_and_two_level_refuse_what_they_were_not_built_for(gen):
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q = _randn(gen, 1, 300, 2, 64).bfloat16()
+    with pytest.raises(ValueError):
+        fa.flash_attention_single_pass(q, q, q)  # Sk 300 > 256
+    with pytest.raises(ValueError):
+        fa.flash_attention_single_pass_batched(q[:, :64], q[:, :64], q[:, :64], 32, 3)
+    with pytest.raises(ValueError):
+        fa.flash_attention_two_level(q, q, q, 64, 512, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention_two_level(q.float(), q.float(), q.float())
+
+
+@pytest.mark.cuda
+def test_auto_dispatch_follows_the_committed_table(gen):
+    """Each hot shape of the table, cut in rows, goes to the kernel that
+    route() names, and only there."""
+    from diffuman4d_torch.ops import attention as attn, flash_attention as fa
+
+    for e in attn._dispatch_table():
+        if e["d"] != 64:
+            continue
+        b, s, h = 1, min(e["s"], 512), max(1, e["b"] * e["h"] // 64)
+        q, k, v = _attn_inputs(gen, b, s, s, h)
+        name, params = attn.route(q.shape, k.shape)
+        before = {n: f.launches for n, f in fa.KERNELS.items()}
+        got = attn.dot_product_attention(q, k, v)
+        after = {n: f.launches - before[n] for n, f in fa.KERNELS.items()}
+        assert after == {n: int(n == name) for n in fa.KERNELS}, (e["name"], name, after)
+        assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
 def _train_inputs(gen, B, Sq, Sk, H):
     """q, k, v, dO in bf16; batch row 0 near-uniform, rows 1+ peaked logits."""
     q = _randn(gen, B, Sq, H, 64)

@@ -4,9 +4,10 @@
 fresh interpreter in which ``import jax`` / ``flax`` / ``optax`` / ``orbax``
 fail: it builds a tiny random-weight model with the port, runs one demo_3d
 spatial task through the port's sampler on a synthetic scene and then two
-steps of the port's training loop, end to end on the CPU, and finally
-checks that no module of those packages or of ``diffuman4d_tpu`` was
-loaded."""
+steps of the port's training loop, end to end on the CPU, imports the
+attention tuner and routes its hot shapes through the committed dispatch
+table, and finally checks that no module of those packages or of
+``diffuman4d_tpu`` was loaded."""
 
 from __future__ import annotations
 
@@ -67,6 +68,16 @@ SCRIPT = textwrap.dedent("""
                       TrainConfig(learning_rate=1e-3))
         assert state.step == 2 and not torch.equal(before, unet.conv_in.weight)
         assert all(torch.isfinite(p).all() for p in state.params.values())
+
+    # the attention tuner's entry point and the table-driven route
+    from diffuman4d_torch import tune_attention
+    from diffuman4d_torch.ops.attention import _dispatch_table, route
+    from diffuman4d_torch.ops.flash_attention import KERNELS
+
+    assert len(_dispatch_table()) == len(tune_attention.HOT_SHAPES)
+    for _, b, s, h, d in tune_attention.HOT_SHAPES:
+        assert route((b, s, h, d), (b, s, h, d))[0] in KERNELS
+    assert tune_attention.main(["--quick"]) == 2  # no card: refuses to sweep
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                            "diffuman4d_tpu")
