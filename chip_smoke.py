@@ -220,9 +220,9 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     paths = cuda_build.build()
     secs = time.perf_counter() - t0
-    for name in paths:
+    for name in paths:  # ptxas: each instance's registers, spills and warnings
         for line in cuda_build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {len(paths)} libraries in {secs:.1f} s")
     return {"build_s": secs}
@@ -683,6 +683,7 @@ def phase_reference_train() -> dict:
 PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
     ("flash_bwd_dkdv_kernel", "flash attention dK/dV (csrc)"),
     ("flash_bwd_dq_kernel", "flash attention dQ (csrc)"),
+    ("flash_fwd_wgmma_kernel", "flash attention fwd, TMA + wgmma (csrc)"),
     ("flash_fwd_kernel", "flash attention (csrc)"),
     ("single_pass_kernel", "single-pass attention (csrc)"),
     ("conv3x3_kernel", "fused conv3x3 (csrc)"),
@@ -704,6 +705,7 @@ def phase_profile(unet, vae, out_dir: Path) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    out_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn((32, 128, 128, 11), generator=gen, device="cuda").bfloat16()
     pose = 0.1 * torch.randn((32, 128, 128, 320), generator=gen, device="cuda").bfloat16()
@@ -1052,8 +1054,8 @@ _FA = "diffuman4d_tpu/ops/flash_attention.py"
 _FB = "diffuman4d_tpu/ops/flash_backward.py"
 # name -> (source, the TPU kernel it replaces, results key of its checks,
 # index of its headline check, phases whose runs count its launches: the
-# first in which it launched; B1/B2 run on the slice where the table routes
-# a shape to them and on the tune path as the base candidate)
+# first in which it launched; B1/B2 and B10 run on the slice where the table
+# routes a shape to them and on the tune path as candidates)
 KERNEL_META = {
     "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn.cu",
                              f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0,
@@ -1065,7 +1067,7 @@ KERNEL_META = {
                        "flash_fwd_d512", 0, "slice"),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3.cu", "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)",
                 "conv3x3", 2, "slice"),
-    "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FB}:49 (_fwd_kernel)",
+    "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
     "flash_bwd_dkdv": ("diffuman4d_torch/csrc/flash_attn_bwd.cu", f"{_FB}:162 (_dkdv_kernel)",
                        "flash_bwd_dkdv", 0, "train"),
@@ -1077,8 +1079,9 @@ KERNEL_META = {
     "flash_fwd_single_pass_batched": ("diffuman4d_torch/csrc/flash_attn_single.cu",
                                       f"{_FA}:530 (_flash_kernel_v6)",
                                       "flash_fwd_single_pass_batched", 0, "tune"),
-    "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FA}:96 (_flash_kernel_v2)",
-                            "flash_fwd_two_level", 0, "tune"),
+    "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn_hopper.cu",
+                            f"{_FA}:96 (_flash_kernel_v2)", "flash_fwd_two_level", 0,
+                            ("slice", "tune")),
 }
 
 

@@ -1,0 +1,201 @@
+"""Time this tree's d = 64 attention forwards against another checkout's, in
+turns, on one card.
+
+    python -m diffuman4d_torch.bench_attention_fwd --baseline DIR [--out PATH]
+
+``DIR`` is the root of another checkout of the repository (for example an
+unpacked ``git archive`` of the parent commit). Its
+``diffuman4d_torch/csrc/flash_attn.cu`` is compiled with this tree's
+``nvcc`` flags and loaded with ctypes; its C entries ``flash_attn_fwd``
+(B1), ``flash_attn_fwd_two_level`` (B10) and ``flash_attn_fwd_lse`` (B5)
+take the arguments that this tree's entries of the same names take, so both
+run on the same tensors. For each shape the baseline and this tree are timed
+in the order baseline, this tree, this tree, baseline (CUDA events around a
+few launches after a warm-up, the minimum of 3 windows each), and their
+outputs are compared. Rows:
+
+* ``b1``: the d = 64 kernel of ``csrc/flash_attn.cu`` in both trees, the
+  control for clock differences (this tree leaves it unchanged);
+* ``b10``: the baseline's B10 at its table's winner against this tree's B10
+  at each staging of ``TWO_LEVEL_CONFIGS``, at the two hottest sampling
+  shapes;
+* ``b5``: the baseline's B5 against this tree's at ``FWD_LSE_BLOCKS``, and
+  this tree's B10 stagings at the same shapes (the sweep that chose
+  ``FWD_LSE_BLOCKS``), at the train step's heaviest attention shapes.
+
+Prints one line per timing and writes the whole result as JSON. Exits 2
+without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+# (name, B, S, H): the sampling path's two hottest d = 64 shapes and the
+# train step's four heaviest
+SAMPLING_SHAPES = [("3d_spatial@64sq", 2, 65536, 10), ("2d@128sq", 32, 16384, 5)]
+TRAIN_SHAPES = [("train_3d@64sq", 1, 49152, 10), ("train_2d@128sq", 12, 16384, 5),
+                ("train_3d@32sq", 1, 12288, 20), ("train_2d@64sq", 12, 4096, 10)]
+# the parent's table winner for B10 at every d = 64 shape with S >= 1,024
+BASELINE_B10_BLOCKS = (128, 256, 128)
+
+
+def _build_baseline(root: Path) -> ctypes.CDLL:
+    from diffuman4d_torch.ops import cuda_build
+
+    src = root / "diffuman4d_torch" / "csrc" / "flash_attn.cu"
+    h = hashlib.sha256(src.read_bytes() + (src.parent / "mma_common.cuh").read_bytes())
+    out = cuda_build.BUILD_DIR / "baseline" / f"libflash_attn_{h.hexdigest()[:12]}.so"
+    if not out.is_file():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    types = {"flash_attn_fwd": cuda_build.ENTRIES["flash_attn"]["flash_attn_fwd"],
+             **{n: cuda_build.ENTRIES["flash_attn_hopper"][n]
+                for n in ("flash_attn_fwd_two_level", "flash_attn_fwd_lse")}}
+    for name, argtypes in types.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def _timed_ms(fn, n: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = math.inf
+    for _ in range(3):
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def _in_turns(base, new, n: int) -> dict:
+    """Baseline, this tree, this tree, baseline."""
+    b1, n1, n2, b2 = (_timed_ms(f, n) for f in (base, new, new, base))
+    return {"baseline_ms": [b1, b2], "this_ms": [n1, n2],
+            "speedup": (b1 + b2) / (n1 + n2)}
+
+
+def run(baseline: Path) -> dict:
+    import torch
+
+    from diffuman4d_torch.ops import cuda_build
+    from diffuman4d_torch.ops import flash_attention as fa
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    lib = _build_baseline(baseline)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(name, *args):
+        cuda_build.check(getattr(lib, name)(*args, stream), f"baseline {name}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res: dict = {"b1": {}, "b10": {}, "b5": {}}
+
+    def inputs(B, S, H):
+        return tuple(torch.randn((B, S, H, 64), generator=gen, device="cuda").bfloat16()
+                     for _ in range(3))
+
+    def log(row: str, r: dict) -> None:
+        print(f"{row}: baseline {r['baseline_ms'][0]:.4f} / {r['baseline_ms'][1]:.4f} ms, this "
+              f"tree {r['this_ms'][0]:.4f} / {r['this_ms'][1]:.4f} ms, x{r['speedup']:.3f}"
+              + (f", max abs diff {r['max_abs_diff']:.3e}" if "max_abs_diff" in r else ""),
+              flush=True)
+
+    for name, B, S, H in SAMPLING_SHAPES:
+        q, k, v = inputs(B, S, H)
+        flops = 4.0 * B * H * S * S * 64
+        n = max(1, min(20, math.ceil(0.02 / (flops / 400e12))))
+        ob = torch.empty_like(q)
+
+        def b1_base():
+            call("flash_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), ob.data_ptr(),
+                 B, H, S, S, 64)
+
+        res["b1"][name] = r = _in_turns(b1_base, lambda: fa.flash_attention_d64(q, k, v), n)
+        log(f"b1 {name}", r)
+
+        def b10_base():
+            call("flash_attn_fwd_two_level", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 ob.data_ptr(), B, H, S, S, *BASELINE_B10_BLOCKS)
+
+        b10_base()
+        want = ob.float()
+        res["b10"][name] = {}
+        for blocks in fa.TWO_LEVEL_CONFIGS:
+            r = _in_turns(b10_base, lambda: fa.flash_attention_two_level(q, k, v, *blocks), n)
+            r["max_abs_diff"] = (fa.flash_attention_two_level(q, k, v, *blocks).float()
+                                 - want).abs().max().item()
+            r["tflops"] = flops / (sum(r["this_ms"]) / 2) / 1e9
+            res["b10"][name]["x".join(map(str, blocks))] = r
+            log(f"b10 {name} {blocks}", r)
+        del q, k, v, ob, want
+        torch.cuda.empty_cache()
+
+    for name, B, S, H in TRAIN_SHAPES:
+        q, k, v = inputs(B, S, H)
+        qs = fb.scale_q(q)
+        flops = 4.0 * B * H * S * S * 64
+        n = max(1, min(20, math.ceil(0.02 / (flops / 400e12))))
+        ob = torch.empty_like(q)
+        l2b = torch.empty((B, H, S), device="cuda")
+
+        def b5_base():
+            call("flash_attn_fwd_lse", qs.data_ptr(), k.data_ptr(), v.data_ptr(), ob.data_ptr(),
+                 l2b.data_ptr(), B, H, S, S)
+
+        r = _in_turns(b5_base, lambda: fb.flash_fwd_lse(qs, k, v), n)
+        b5_base()
+        out, l2 = fb.flash_fwd_lse(qs, k, v)
+        r["max_abs_diff"] = (out.float() - ob.float()).abs().max().item()
+        r["l2_max_abs_diff"] = (l2 - l2b).abs().max().item()
+        r["stagings_ms"] = {"x".join(map(str, blocks)): _timed_ms(
+            lambda: fa.flash_attention_two_level(q, k, v, *blocks), n)
+            for blocks in fa.TWO_LEVEL_CONFIGS}
+        res["b5"][name] = r
+        log(f"b5 {name} {fb.FWD_LSE_BLOCKS}", r)
+        print(f"  b10 stagings at {name}: {r['stagings_ms']}", flush=True)
+        del q, k, v, qs, ob, l2b, out, l2
+        torch.cuda.empty_cache()
+    return res
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", required=True, help="root of the other checkout")
+    ap.add_argument("--out", default="results/bench_attention_fwd.json")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_attention_fwd: no CUDA device", file=sys.stderr)
+        return 2
+    from diffuman4d_torch.ops.flash_backward import FWD_LSE_BLOCKS
+    from diffuman4d_torch.tune_attention import device_info
+
+    info = device_info()
+    print(f"device {info['device']}, power limit {info['power_limit']}", flush=True)
+    res = {**info, "fwd_lse_blocks": list(FWD_LSE_BLOCKS), **run(Path(args.baseline))}
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

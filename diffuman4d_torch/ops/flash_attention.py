@@ -1,7 +1,8 @@
 """Flash attention on Hopper, with its plain PyTorch version beside it.
 
 Counterpart of ``diffuman4d_tpu/ops/flash_attention.py``. Five wrappers
-launch the kernels of ``csrc/flash_attn.cu`` and ``csrc/flash_attn_single.cu``:
+launch the kernels of ``csrc/flash_attn.cu``, ``csrc/flash_attn_single.cu``
+and ``csrc/flash_attn_hopper.cu``:
 
 * :func:`flash_attention_d64` replaces ``flash_attention_v4`` (the UNet's
   3D window attention) and ``flash_attention_v3`` (its per-frame
@@ -13,9 +14,10 @@ launch the kernels of ``csrc/flash_attn.cu`` and ``csrc/flash_attn_single.cu``:
 * :func:`flash_attention_single_pass_batched` replaces
   ``flash_attention_v6``: the same with ``block_b`` (batch * head) rows per
   thread block.
-* :func:`flash_attention_two_level` replaces ``flash_attention_v2``:
-  online softmax over k-major tiles of ``block_k_major`` keys staged in
-  shared memory, walked in chunks of ``block_k`` keys.
+* :func:`flash_attention_two_level` replaces ``flash_attention_v2``: the
+  TMA / wgmma kernel, ``block_q`` query rows per block (64 per consumer
+  warpgroup), K/V tiles of ``block_k_major`` keys per TMA stage, ``Q K^T``
+  in chunks of ``block_k`` keys.
 
 Semantics (all five): O = softmax(Q K^T / sqrt(d)) V per (batch, head) on
 ``(B, S, H, D)``, non-causal, unmasked, the exact scale applied to fp32
@@ -45,9 +47,11 @@ SMEM_PER_BLOCK = 232_448
 SINGLE_PASS_BLOCK_Q = (16, 32, 64, 128)
 SINGLE_PASS_MAX_SK = 256
 SINGLE_PASS_MAX_WARPS = 8
-# two-level (B10): the (block_q, block_k_major, block_k) built in csrc/flash_attn.cu
+# two-level (B10): the (block_q, block_k_major, block_k) built in
+# csrc/flash_attn_hopper.cu
 TWO_LEVEL_CONFIGS = ((64, 128, 64), (64, 256, 64), (64, 256, 128),
-                     (128, 128, 64), (128, 256, 64), (128, 256, 128))
+                     (128, 128, 64), (128, 256, 64), (128, 256, 128),
+                     (192, 128, 64), (192, 256, 64))
 
 
 def single_pass_ok(sk: int, block_q: int, d: int = 64, block_b: int = 1) -> bool:
@@ -178,9 +182,9 @@ def flash_attention_two_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               block_q: int = 64, block_k_major: int = 256,
                               block_k: int = 64) -> torch.Tensor:
     """Two-level KV blocking at head dim 64 (TPU kernel B10
-    ``_flash_kernel_v2``): k-major tiles of ``block_k_major`` keys, inner
-    chunks of ``block_k``. Raises for block sizes not in
-    :data:`TWO_LEVEL_CONFIGS`; any Sq and Sk."""
+    ``_flash_kernel_v2``): ``block_q`` query rows per block, K/V tiles of
+    ``block_k_major`` keys per TMA stage, ``Q K^T`` chunks of ``block_k``.
+    Raises for block sizes not in :data:`TWO_LEVEL_CONFIGS`; any Sq and Sk."""
     _check_shapes(q, k, v, 64)
     if not two_level_ok(64, block_q, block_k_major, block_k):
         raise ValueError(f"two-level attention: not built for blocks ({block_q}, "
@@ -188,7 +192,8 @@ def flash_attention_two_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     blocks = (block_q, block_k_major, block_k)
-    return _launch(flash_attention_two_level, q, k, v, "flash_attn_fwd_two_level", blocks, blocks)
+    return _launch(flash_attention_two_level, q, k, v, "flash_attn_fwd_two_level", blocks, blocks,
+                   lib="flash_attn_hopper")
 
 
 # the port's attention kernels by their dispatch names, and the block-size

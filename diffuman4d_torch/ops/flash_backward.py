@@ -6,7 +6,8 @@ wrappers, each with its plain version:
 
 * :func:`flash_fwd_lse` replaces ``_fwd`` / ``_fwd_kernel`` (TPU kernel B5):
   the output and the per-query base-2 logsumexp ``L2``
-  (``csrc/flash_attn.cu``, the d = 64 forward with its L2 output on);
+  (``csrc/flash_attn_hopper.cu``, the TMA / wgmma forward of B10 with its L2
+  output on, at the one staging :data:`FWD_LSE_BLOCKS`);
 * :func:`flash_bwd_dkdv` replaces ``_dkdv_kernel`` (B6) and
   :func:`flash_bwd_dq` replaces ``_dq_kernel`` (B7), both of
   ``csrc/flash_attn_bwd.cu``.
@@ -37,6 +38,10 @@ from diffuman4d_torch.ops import cuda_build
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 HEAD_DIM = 64
+# (block_q, block_k_major, block_k) of the training forward's one staging
+# (LSE_BLOCK_* of csrc/flash_attn_hopper.cu), chosen from a sweep of the
+# two-level stagings at the train step's attention shapes on the H100
+FWD_LSE_BLOCKS = (192, 256, 64)
 
 
 def scale_q(q: torch.Tensor) -> torch.Tensor:
@@ -132,13 +137,14 @@ def _call(wrapper, lib: str, fn_name: str, ref: torch.Tensor, sizes, *tensors):
 
 def flash_fwd_lse(qs, k, v):
     """Forward from pre-scaled ``qs`` (TPU kernel B5 ``_fwd_kernel``):
-    (out, L2). bf16 CUDA tensors launch the kernel."""
+    (out, L2). bf16 CUDA tensors launch the kernel at
+    :data:`FWD_LSE_BLOCKS`."""
     if qs.device.type == "cpu":
         return flash_fwd_lse_plain(qs, k, v)
     (qs, k, v, *_), sizes = _check("flash_fwd_lse", qs, k, v)
     out = torch.empty_like(qs)
     l2 = torch.empty((sizes[0], sizes[1], sizes[2]), dtype=torch.float32, device=qs.device)
-    _call(flash_fwd_lse, "flash_attn", "flash_attn_fwd_lse", qs, sizes, qs, k, v, out, l2)
+    _call(flash_fwd_lse, "flash_attn_hopper", "flash_attn_fwd_lse", qs, sizes, qs, k, v, out, l2)
     return out, l2
 
 

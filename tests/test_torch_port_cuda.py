@@ -132,7 +132,8 @@ def test_flash_single_pass_batched_matches_plain(gen, B, Sq, Sk, H, block_q, blo
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [(64, 128, 64), (64, 256, 64), (64, 256, 128),
-                                    (128, 128, 64), (128, 256, 64), (128, 256, 128)])
+                                    (128, 128, 64), (128, 256, 64), (128, 256, 128),
+                                    (192, 128, 64), (192, 256, 64)])
 @pytest.mark.parametrize("B,Sq,Sk,H", [(2, 300, 530, 2), (2, 64, 64, 1), (1, 1000, 1000, 2)])
 def test_flash_two_level_matches_plain(gen, blocks, B, Sq, Sk, H):
     """B10 at every built staging, with ragged k-major tiles and Sq != Sk."""
@@ -144,6 +145,79 @@ def test_flash_two_level_matches_plain(gen, blocks, B, Sq, Sk, H):
     torch.cuda.synchronize()
     assert (B, Sq, Sk, H, *blocks) in fn.shapes
     assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+def _per_batch_scaled_inputs(gen, B, Sq, Sk, H):
+    """q, k, v in bf16 whose batches differ in scale (k by 0.5 (b + 1), v by
+    2^b plus an offset b), so a tile that read another batch's tokens would
+    show in that batch's error. K and V are views into buffers that hold
+    NaN past their last token: a read past the tensor's end would reach the
+    output through the PV product."""
+    q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
+    scale = torch.arange(B, device="cuda", dtype=torch.float32)
+    k = (k.float() * (0.5 * (scale + 1)).view(B, 1, 1, 1)).bfloat16()
+    v = (v.float() * (2 ** scale).view(B, 1, 1, 1) + scale.view(B, 1, 1, 1)).bfloat16()
+    padded = []
+    for x in (k, v):
+        buf = torch.full((x.numel() + 8192,), float("nan"), device="cuda", dtype=torch.bfloat16)
+        buf[: x.numel()] = x.flatten()
+        padded.append(buf[: x.numel()].view(x.shape))
+    return (q, *padded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(64, 128, 64), (64, 256, 64), (64, 256, 128),
+                                    (128, 128, 64), (128, 256, 64), (128, 256, 128),
+                                    (192, 128, 64), (192, 256, 64)])
+def test_flash_two_level_keeps_to_each_batch(gen, blocks):
+    """B10 at every staging on B = 4 batches of different scale, Sq != Sk and
+    Sk (333) not a multiple of any tile: each batch within the bound."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q, k, v = _per_batch_scaled_inputs(gen, 4, 190, 333, 2)
+    got = fa.flash_attention_two_level(q, k, v, *blocks)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+def test_hopper_wgmma_probe_matches_torch(gen):
+    """The TMA and wgmma pieces of csrc/flash_attn_hopper.cu on one tile:
+    S = Q K^T from two 128-byte-swizzled K-major shared-memory operands, then
+    O = bf16(S) V with P from registers and V as the MN-major operand."""
+    from diffuman4d_torch.ops import cuda_build
+
+    q = _randn(gen, 1, 64, 1, 64).bfloat16()
+    k, v = (_randn(gen, 1, 128, 1, 64).bfloat16() for _ in range(2))
+    s = torch.empty((64, 128), device="cuda")
+    o = torch.empty((64, 64), device="cuda")
+    fn = cuda_build.entry("flash_attn_hopper", "flash_attn_hopper_probe")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, "flash_attn_hopper_probe")
+    torch.cuda.synchronize()
+    # bf16 products are exact in fp32; the sums run in another order
+    want_s = q[0, :, 0].float() @ k[0, :, 0].float().T
+    assert (s - want_s).abs().max().item() <= 1e-4 * want_s.abs().max().item()
+    want_o = s.bfloat16().float() @ v[0, :, 0].float()
+    assert (o - want_o).abs().max().item() <= 1e-4 * want_o.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_fwd_lse_keeps_to_each_batch(gen):
+    """B5 on the inputs of test_flash_two_level_keeps_to_each_batch: out and
+    L2 of every batch against the plain version."""
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    q, k, v = _per_batch_scaled_inputs(gen, 4, 190, 333, 2)
+    qs = fb.scale_q(q)
+    out, l2 = fb.flash_fwd_lse(qs, k, v)
+    out_p, l2_p = fb.flash_fwd_lse_plain(qs, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(l2).all()
+    assert _row_rel_err(out, out_p) <= 2 ** -5
+    assert (l2 - l2_p).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
@@ -197,7 +271,7 @@ def _row_rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H", [(2, 77, 77, 3), (2, 130, 190, 2), (3, 64, 64, 1),
-                                       (2, 200, 50, 2), (1, 1, 300, 1)])
+                                       (2, 200, 50, 2), (1, 1, 300, 1), (3, 300, 530, 2)])
 def test_flash_train_kernels_match_plain(gen, B, Sq, Sk, H):
     """B5 (out, L2), B6 (dK, dV), B7 (dQ) each against its plain version on
     the same inputs, ragged and Sq != Sk."""

@@ -6,7 +6,7 @@ fail: it builds a tiny random-weight model with the port, runs one demo_3d
 spatial task through the port's sampler on a synthetic scene and then two
 steps of the port's training loop, end to end on the CPU, imports the
 attention tuner and routes its hot shapes through the committed dispatch
-table, and finally checks that no module of those packages or of
+table, imports the forward benchmark, and finally checks that no module of those packages or of
 ``diffuman4d_tpu`` was loaded."""
 
 from __future__ import annotations
@@ -78,6 +78,9 @@ SCRIPT = textwrap.dedent("""
     for _, b, s, h, d in tune_attention.HOT_SHAPES:
         assert route((b, s, h, d), (b, s, h, d))[0] in KERNELS
     assert tune_attention.main(["--quick"]) == 2  # no card: refuses to sweep
+    from diffuman4d_torch import bench_attention_fwd
+
+    assert bench_attention_fwd.main(["--baseline", "."]) == 2  # no card: refuses to time
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                            "diffuman4d_tpu")
