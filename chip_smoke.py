@@ -43,9 +43,9 @@ Phases:
    ``encode_training_batch`` (B = 1, L = 12: 4 condition rows + 8 targets,
    1024^2 images, 128^2 latents) with a fixed noise draw, twice from the
    same weights. Counters are zeroed just before and read just after: the
-   forward-with-logsumexp, dK/dV and dQ kernels and the fused conv must
-   have launched the reckoned number of times; the loss must be finite, fall
-   from step 1 to step 3 and repeat bit for bit at step 1.
+   forward-with-logsumexp kernel, the fused backward and the fused conv
+   must have launched the reckoned number of times; the loss must be
+   finite, fall from step 1 to step 3 and repeat bit for bit at every step.
 5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
@@ -55,7 +55,8 @@ Phases:
    Where the plain attention cannot hold the S x S scores it is compared on
    a random subset of query rows against the full K/V and timed
    query-chunked; dK/dV are then compared with Q and dO cut to that subset
-   on both sides.
+   on both sides. The fused backward is also launched twice more at each
+   train shape, and its dQ, dK and dV must repeat bit for bit.
 
 ``--phases profile`` (not in the default set) adds a torch.profiler
 breakdown of one CFG window step, one VAE decode micro-batch and one train
@@ -353,9 +354,10 @@ def _head_rel_err(got, want) -> float:
 
 
 def check_attention_train(B: int, S: int, Sk: int, H: int, gen) -> dict:
-    """The forward with logsumexp (out, L2), dK/dV and dQ kernels at head dim
-    64 against their plain versions, with times, bounds and the library's
-    forward / backward. Returns one result per kernel."""
+    """The forward with logsumexp (out, L2) and the fused backward (dQ, dK,
+    dV) at head dim 64 against their plain versions, with times, bounds and
+    the library's forward / backward, and the backward's bit-repeatability
+    over two more launches. Returns one result per kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -380,26 +382,27 @@ def check_attention_train(B: int, S: int, Sk: int, H: int, gen) -> dict:
     delta = fb.attention_delta(out, dout)
     sub = (qs[:, rows].contiguous(), k, v, dout[:, rows].contiguous(),
            l2[:, :, rows].contiguous(), delta[:, :, rows].contiguous())
-    dq = fb.flash_bwd_dq(qs, k, v, dout, l2, delta)
-    dq_ref = fb.flash_bwd_dq_plain(*sub)
-    errs["flash_bwd_dq"] = ((dq[:, rows].float() - dq_ref.float()).abs().max().item(),
-                            _head_rel_err(dq[:, rows], dq_ref))
-    del dq, dq_ref
-    # dK, dV: the queries (and dO, L2, delta) cut to the subset on both sides
-    dk, dv = fb.flash_bwd_dkdv(*sub)
-    dk_ref, dv_ref = fb.flash_bwd_dkdv_plain(*sub)
-    errs["flash_bwd_dkdv"] = (
-        max((dk.float() - dk_ref.float()).abs().max().item(),
-            (dv.float() - dv_ref.float()).abs().max().item()),
-        max(_head_rel_err(dk, dk_ref), _head_rel_err(dv, dv_ref)))
-    finite = all(torch.isfinite(x).all().item() for x in (out, l2, dk, dv))
-    del dk, dv, dk_ref, dv_ref, sub
+    # a dQ row needs all keys but only its own query: the full launch's rows
+    # against the plain version on the subset; dK and dV sum over every
+    # query, so they come from a launch with the queries (and dO, L2,
+    # delta) cut to the subset on both sides
+    dq = fb.flash_bwd(qs, k, v, dout, l2, delta)[0][:, rows]
+    dq_ref, dk_ref, dv_ref = fb.flash_bwd_plain(*sub)
+    _, dk, dv = fb.flash_bwd(*sub)
+    pairs = ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref))
+    errs["flash_bwd"] = (max((a.float() - b.float()).abs().max().item() for a, b in pairs),
+                         max(_head_rel_err(a, b) for a, b in pairs))
+    finite = all(torch.isfinite(x).all().item() for x in (out, l2, dq, dk, dv))
+    del dq, dk, dv, dq_ref, dk_ref, dv_ref, pairs, sub
+    # the dQ partials are added in key-block order: two launches, same bits
+    first = fb.flash_bwd(qs, k, v, dout, l2, delta)
+    repeat = all(torch.equal(a, b) for a, b in zip(first, fb.flash_bwd(qs, k, v, dout, l2, delta)))
+    del first
 
     big = S >= 12288
     it = dict(iters=3 if big else 10)
     ms = {"flash_fwd_lse": cuda_ms(lambda: fb.flash_fwd_lse(qs, k, v), **it),
-          "flash_bwd_dkdv": cuda_ms(lambda: fb.flash_bwd_dkdv(qs, k, v, dout, l2, delta), **it),
-          "flash_bwd_dq": cuda_ms(lambda: fb.flash_bwd_dq(qs, k, v, dout, l2, delta), **it)}
+          "flash_bwd": cuda_ms(lambda: fb.flash_bwd(qs, k, v, dout, l2, delta), **it)}
 
     def chunked(fn):
         def run():
@@ -412,10 +415,9 @@ def check_attention_train(B: int, S: int, Sk: int, H: int, gen) -> dict:
     plain_ms = {
         "flash_fwd_lse": cuda_ms(chunked(lambda qs_, k_, v_, *_: fb.flash_fwd_lse_plain(qs_, k_, v_)),
                                  **pl),
-        "flash_bwd_dkdv": cuda_ms(chunked(fb.flash_bwd_dkdv_plain), **pl),
-        "flash_bwd_dq": cuda_ms(chunked(fb.flash_bwd_dq_plain), **pl)}
+        "flash_bwd": cuda_ms(chunked(fb.flash_bwd_plain), **pl)}
     # the library: one SDPA forward; its backward (dQ, dK and dV in one
-    # autograd call) stands beside both backward kernels
+    # autograd call) stands beside the fused backward
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     lib_fwd = try_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), **it)
     lib_bwd = None
@@ -424,15 +426,15 @@ def check_attention_train(B: int, S: int, Sk: int, H: int, gen) -> dict:
         go = dout.transpose(1, 2)
         lib_bwd = try_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), **it)
         del o
-    library_ms = {"flash_fwd_lse": lib_fwd, "flash_bwd_dkdv": lib_bwd, "flash_bwd_dq": lib_bwd}
+    library_ms = {"flash_fwd_lse": lib_fwd, "flash_bwd": lib_bwd}
 
     unit = 2.0 * B * H * S * Sk * D  # one S x Sk x D matrix product
     qb, kb, vec = 2.0 * q.numel(), 2.0 * k.numel(), 4.0 * B * H * S
-    # minimal work: fwd 2 products (S, PV); dK/dV 4 (S, dP, dV, dK); dQ 3 (S, dP, dQ)
+    # minimal work: fwd 2 products (S, PV); bwd 5 (S, dP, dV, dK, dQ), reading
+    # qs, dO, k, v, L2, delta and writing dQ, dK, dV once
     bounds = {"flash_fwd_lse": bound(2 * unit, 2 * qb + 2 * kb + vec),
-              "flash_bwd_dkdv": bound(4 * unit, 2 * qb + 4 * kb + 2 * vec),
-              "flash_bwd_dq": bound(3 * unit, 3 * qb + 2 * kb + 2 * vec)}
-    nprod = {"flash_fwd_lse": 2, "flash_bwd_dkdv": 4, "flash_bwd_dq": 3}
+              "flash_bwd": bound(5 * unit, 3 * qb + 4 * kb + 2 * vec)}
+    nprod = {"flash_fwd_lse": 2, "flash_bwd": 5}
     shape = f"B{B}xS{S}xH{H}xD{D}" + (f"xSk{Sk}" if Sk != S else "")
     results = {}
     for name in ms:
@@ -446,9 +448,13 @@ def check_attention_train(B: int, S: int, Sk: int, H: int, gen) -> dict:
             f"{plain_ms[name]:.3f} ms  library {library_ms[name]} ms  bound "
             f"{bounds[name]['bound_ms']:.3f} ms  rows {rows.numel()}")
     results["flash_fwd_lse"]["l2_abs_err"] = l2_err
-    log(f"    L2 max abs err {l2_err:.3e} (tol {L2_ABS_TOL:.0e})")
+    results["flash_bwd"]["repeat_bits"] = repeat
+    log(f"    L2 max abs err {l2_err:.3e} (tol {L2_ABS_TOL:.0e}); backward bit-equal over two "
+        f"launches: {repeat}")
     if not finite:
         raise AssertionError(f"attention train {shape}: non-finite output")
+    if not repeat:
+        raise AssertionError(f"flash_bwd {shape}: two launches gave different bits")
     for name, (_, rel) in errs.items():
         tol = ATTN_REL_TOL if name == "flash_fwd_lse" else BWD_REL_TOL
         if not rel <= tol:
@@ -511,8 +517,7 @@ def phase_kernels(launched: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {name: [] for name in ATTN_NAMES.values()}
-    results.update({"conv3x3": [], "flash_fwd_lse": [], "flash_bwd_dkdv": [], "flash_bwd_dq": [],
-                    "conv3x3_grad": []})
+    results.update({"conv3x3": [], "flash_fwd_lse": [], "flash_bwd": [], "conv3x3_grad": []})
     cache: dict = {}  # plain and library times per attention shape
     for kernel, name in ATTN_NAMES.items():
         D = 512 if kernel == "flash_d512" else 64
@@ -528,9 +533,9 @@ def phase_kernels(launched: dict) -> dict:
     for shape in _ordered(fixed, launched.get("conv3x3", ())):
         results["conv3x3"].append(check_conv(*shape, gen))
         torch.cuda.empty_cache()
-    # the train path: B5-B7 at its fixed shapes and at every shape it launched
-    train_launched = set().union(*(launched.get(n, ()) for n in
-                                   ("flash_fwd_lse", "flash_bwd_dkdv", "flash_bwd_dq")))
+    # the train path: B5 and the fused B6 + B7 at its fixed shapes and at
+    # every shape it launched
+    train_launched = set().union(*(launched.get(n, ()) for n in ("flash_fwd_lse", "flash_bwd")))
     for B, S, Sk, H in _ordered([(B, S, S, H) for B, S, H in TRAIN_ATTN_SHAPES], train_launched):
         for name, res in check_attention_train(B, S, Sk, H, gen).items():
             results[name].append(res)
@@ -646,7 +651,7 @@ def phase_reference_train() -> dict:
     t = torch.tensor([500], device="cuda")
     eps = torch.randn((1, 4, 32, 32, 4), generator=gen, device="cuda")
     sched, cfg = Scheduler(SchedulerConfig(), "cuda"), TrainConfig()
-    wrappers = (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)
+    wrappers = (fb.flash_fwd_lse, fb.flash_bwd)
 
     def grads():
         for p in unet.parameters():
@@ -668,9 +673,9 @@ def phase_reference_train() -> dict:
     res = {"train_loss": loss, "train_loss_plain": loss_ref, "grad_rel_l2": _rel_l2(g, g_ref),
            "launches": launched, "transformer_blocks": n_blocks}
     log(f"reference (train): loss {loss:.6f} vs plain {loss_ref:.6f}, gradient rel L2 "
-        f"{res['grad_rel_l2']:.3e}, launches fwd/dkdv/dq {launched} over {n_blocks} blocks")
+        f"{res['grad_rel_l2']:.3e}, launches fwd/bwd {launched} over {n_blocks} blocks")
     # remat: two forwards per attention, one backward
-    if launched != [4 * n_blocks, 2 * n_blocks, 2 * n_blocks]:
+    if launched != [4 * n_blocks, 2 * n_blocks]:
         raise AssertionError(f"reference: train kernel launches {launched}")
     if not (math.isfinite(loss) and torch.isfinite(g).all()):
         raise AssertionError("reference: non-finite train loss or gradient")
@@ -681,8 +686,7 @@ def phase_reference_train() -> dict:
 
 
 PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
-    ("flash_bwd_dkdv_kernel", "flash attention dK/dV (csrc)"),
-    ("flash_bwd_dq_kernel", "flash attention dQ (csrc)"),
+    ("flash_bwd_fused_kernel|dq_convert_kernel", "flash attention backward, fused (csrc)"),
     ("flash_fwd_wgmma_kernel", "flash attention fwd, TMA + wgmma (csrc)"),
     ("flash_fwd_kernel", "flash attention (csrc)"),
     ("single_pass_kernel", "single-pass attention (csrc)"),
@@ -839,8 +843,8 @@ def phase_train(unet, vae, work: Path) -> dict:
     tcfg = TrainConfig()  # the defaults: lr 1e-5, remat, AdamW, attention "train"
     step = make_train_step(unet, pipe.scheduler, tcfg, "spatial")
 
-    wrappers = {"flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd_dkdv": fb.flash_bwd_dkdv,
-                "flash_bwd_dq": fb.flash_bwd_dq, "conv3x3": conv.conv3x3,
+    wrappers = {"flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd": fb.flash_bwd,
+                "conv3x3": conv.conv3x3,
                 **{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}}
     runs = []
     for run in range(2):
@@ -884,8 +888,7 @@ def phase_train(unet, vae, work: Path) -> dict:
     log(f"train: {json.dumps(res)}")
     steps = {n: first["launches"][n] - first["encode_launches"][n] for n in wrappers}
     expect = {"flash_fwd_lse": 2 * ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
-              "flash_bwd_dkdv": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
-              "flash_bwd_dq": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
+              "flash_bwd": ATTN_CALLS_PER_FORWARD * TRAIN_STEPS,
               "conv3x3": 2 * TRAIN_STEPS,  # the 128^2 x 640 upsampler, forward and recompute
               **{name: 0 for name in ATTN_NAMES.values()}}
     if list(batch["latents_x0"].shape) != [1, TRAIN_L, 128, 128, 4] or n_params < 0.8e9:
@@ -902,9 +905,9 @@ def phase_train(unet, vae, work: Path) -> dict:
         if r["params_without_grad"]:
             raise AssertionError(f"train: parameters without a gradient: "
                                  f"{r['params_without_grad'][:8]}")
-    if not res["repeat_bits"][0]:
-        raise AssertionError(f"train: the first step does not repeat: {first['losses']} vs "
-                             f"{runs[1]['losses']}")
+    if not all(res["repeat_bits"]):
+        raise AssertionError(f"train: the losses do not repeat bit for bit: {first['losses']} "
+                             f"vs {runs[1]['losses']}")
     return res
 
 
@@ -1069,10 +1072,9 @@ KERNEL_META = {
                 "conv3x3", 2, "slice"),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
-    "flash_bwd_dkdv": ("diffuman4d_torch/csrc/flash_attn_bwd.cu", f"{_FB}:162 (_dkdv_kernel)",
-                       "flash_bwd_dkdv", 0, "train"),
-    "flash_bwd_dq": ("diffuman4d_torch/csrc/flash_attn_bwd.cu", f"{_FB}:205 (_dq_kernel)",
-                     "flash_bwd_dq", 0, "train"),
+    "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",
+                  f"{_FB}:162 (_dkdv_kernel) and {_FB}:205 (_dq_kernel)", "flash_bwd", 0,
+                  "train"),
     "flash_fwd_single_pass": ("diffuman4d_torch/csrc/flash_attn_single.cu",
                               f"{_FA}:463 (_flash_kernel_v5)", "flash_fwd_single_pass", 0,
                               "tune"),
@@ -1168,6 +1170,8 @@ def main() -> int:
         checks = results.get("kernels", {}).get(key, [])
         head = checks[idx] if len(checks) > idx else {}
         ran = [p for p in ((phase,) if isinstance(phase, str) else phase) if p in results]
+        if not ran:  # a partial run (--phases) drove none of this kernel's paths
+            continue
         phase = next((p for p in ran if results[p]["launches"].get(name)), ran[0] if ran else None)
         launches = results.get(phase, {}).get("launches", {}).get(name)
         if launches == 0 or ("kernels" in results and not head):

@@ -1,18 +1,21 @@
-"""Time this tree's d = 64 attention forwards against another checkout's, in
+"""Time this tree's d = 64 attention kernels against another checkout's, in
 turns, on one card.
 
-    python -m diffuman4d_torch.bench_attention_fwd --baseline DIR [--out PATH]
+    python -m diffuman4d_torch.bench_attention_fwd --baseline DIR [--rows b1,bwd] [--out PATH]
 
 ``DIR`` is the root of another checkout of the repository (for example an
-unpacked ``git archive`` of the parent commit). Its
-``diffuman4d_torch/csrc/flash_attn.cu`` is compiled with this tree's
+unpacked ``git archive`` of the parent commit). Its attention sources under
+``diffuman4d_torch/csrc`` (``flash_attn.cu``, ``flash_attn_hopper.cu``,
+``flash_attn_bwd.cu``, whichever it has) are compiled with this tree's
 ``nvcc`` flags and loaded with ctypes; its C entries ``flash_attn_fwd``
 (B1), ``flash_attn_fwd_two_level`` (B10) and ``flash_attn_fwd_lse`` (B5)
-take the arguments that this tree's entries of the same names take, so both
-run on the same tensors. For each shape the baseline and this tree are timed
-in the order baseline, this tree, this tree, baseline (CUDA events around a
-few launches after a warm-up, the minimum of 3 windows each), and their
-outputs are compared. Rows:
+take the arguments that this tree's entries of the same names take, and its
+``flash_attn_bwd_dkdv`` + ``flash_attn_bwd_dq`` (B6 + B7, the backward before
+it was fused) those of :data:`BASELINE_BWD_ENTRIES`, so both run on the same
+tensors. For each shape the baseline and this tree are timed in the order
+baseline, this tree, this tree, baseline (CUDA events around a few launches
+after a warm-up, the minimum of 3 windows each), and their outputs are
+compared. Rows (``--rows`` picks some; default all):
 
 * ``b1``: the d = 64 kernel of ``csrc/flash_attn.cu`` in both trees, the
   control for clock differences (this tree leaves it unchanged);
@@ -21,7 +24,10 @@ outputs are compared. Rows:
   shapes;
 * ``b5``: the baseline's B5 against this tree's at ``FWD_LSE_BLOCKS``, and
   this tree's B10 stagings at the same shapes (the sweep that chose
-  ``FWD_LSE_BLOCKS``), at the train step's heaviest attention shapes.
+  ``FWD_LSE_BLOCKS``), at the train step's heaviest attention shapes;
+* ``bwd``: the baseline's B6 + B7 (two launches) against this tree's fused
+  backward (one launch) on the same Qs, K, V, dO, L2 and delta, at the same
+  train shapes, with the largest difference of dQ, dK and dV.
 
 Prints one line per timing and writes the whole result as JSON. Exits 2
 without a card.
@@ -43,28 +49,44 @@ from pathlib import Path
 SAMPLING_SHAPES = [("3d_spatial@64sq", 2, 65536, 10), ("2d@128sq", 32, 16384, 5)]
 TRAIN_SHAPES = [("train_3d@64sq", 1, 49152, 10), ("train_2d@128sq", 12, 16384, 5),
                 ("train_3d@32sq", 1, 12288, 20), ("train_2d@64sq", 12, 4096, 10)]
-# the parent's table winner for B10 at every d = 64 shape with S >= 1,024
-BASELINE_B10_BLOCKS = (128, 256, 128)
+# the parent's table winner for B10 at the d = 64 shapes with S >= 4,096
+BASELINE_B10_BLOCKS = (192, 256, 64)
+ROWS = ("b1", "b10", "b5", "bwd")
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the baseline's two backward entries (this tree has one fused entry instead)
+BASELINE_BWD_ENTRIES = {"flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+                        "flash_attn_bwd_dkdv": [_PTR] * 8 + [_INT] * 4 + [_PTR]}
 
 
-def _build_baseline(root: Path) -> ctypes.CDLL:
+def _build_baseline(root: Path) -> dict:
+    """The baseline's C entries by name: each attention source it has,
+    compiled into ``build/baseline`` (keyed by a hash of the source and its
+    headers)."""
     from diffuman4d_torch.ops import cuda_build
 
-    src = root / "diffuman4d_torch" / "csrc" / "flash_attn.cu"
-    h = hashlib.sha256(src.read_bytes() + (src.parent / "mma_common.cuh").read_bytes())
-    out = cuda_build.BUILD_DIR / "baseline" / f"libflash_attn_{h.hexdigest()[:12]}.so"
-    if not out.is_file():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)],
-                       check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    types = {"flash_attn_fwd": cuda_build.ENTRIES["flash_attn"]["flash_attn_fwd"],
-             **{n: cuda_build.ENTRIES["flash_attn_hopper"][n]
-                for n in ("flash_attn_fwd_two_level", "flash_attn_fwd_lse")}}
-    for name, argtypes in types.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
+    csrc = root / "diffuman4d_torch" / "csrc"
+    headers = b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
+    types = {n: t for lib in ("flash_attn", "flash_attn_hopper")
+             for n, t in cuda_build.ENTRIES[lib].items()}
+    types.update(BASELINE_BWD_ENTRIES)
+    entries = {}
+    for name in ("flash_attn", "flash_attn_hopper", "flash_attn_bwd"):
+        src = csrc / f"{name}.cu"
+        if not src.is_file():
+            continue
+        h = hashlib.sha256(src.read_bytes() + headers)
+        out = cuda_build.BUILD_DIR / "baseline" / f"lib{name}_{h.hexdigest()[:12]}.so"
+        if not out.is_file():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                           check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(str(out))
+        for fn_name, argtypes in types.items():
+            fn = getattr(lib, fn_name, None)
+            if fn is not None and fn_name not in entries:
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                entries[fn_name] = fn
+    return entries
 
 
 def _timed_ms(fn, n: int) -> float:
@@ -91,7 +113,7 @@ def _in_turns(base, new, n: int) -> dict:
             "speedup": (b1 + b2) / (n1 + n2)}
 
 
-def run(baseline: Path) -> dict:
+def run(baseline: Path, rows=ROWS) -> dict:
     import torch
 
     from diffuman4d_torch.ops import cuda_build
@@ -102,10 +124,10 @@ def run(baseline: Path) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(name, *args):
-        cuda_build.check(getattr(lib, name)(*args, stream), f"baseline {name}")
+        cuda_build.check(lib[name](*args, stream), f"baseline {name}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    res: dict = {"b1": {}, "b10": {}, "b5": {}}
+    res: dict = {row: {} for row in rows}
 
     def inputs(B, S, H):
         return tuple(torch.randn((B, S, H, 64), generator=gen, device="cuda").bfloat16()
@@ -117,7 +139,7 @@ def run(baseline: Path) -> dict:
               + (f", max abs diff {r['max_abs_diff']:.3e}" if "max_abs_diff" in r else ""),
               flush=True)
 
-    for name, B, S, H in SAMPLING_SHAPES:
+    for name, B, S, H in SAMPLING_SHAPES if {"b1", "b10"} & set(rows) else ():
         q, k, v = inputs(B, S, H)
         flops = 4.0 * B * H * S * S * 64
         n = max(1, min(20, math.ceil(0.02 / (flops / 400e12))))
@@ -127,8 +149,13 @@ def run(baseline: Path) -> dict:
             call("flash_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), ob.data_ptr(),
                  B, H, S, S, 64)
 
-        res["b1"][name] = r = _in_turns(b1_base, lambda: fa.flash_attention_d64(q, k, v), n)
-        log(f"b1 {name}", r)
+        if "b1" in rows:
+            res["b1"][name] = r = _in_turns(b1_base, lambda: fa.flash_attention_d64(q, k, v), n)
+            log(f"b1 {name}", r)
+        if "b10" not in rows:
+            del q, k, v, ob
+            torch.cuda.empty_cache()
+            continue
 
         def b10_base():
             call("flash_attn_fwd_two_level", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -147,7 +174,7 @@ def run(baseline: Path) -> dict:
         del q, k, v, ob, want
         torch.cuda.empty_cache()
 
-    for name, B, S, H in TRAIN_SHAPES:
+    for name, B, S, H in TRAIN_SHAPES if {"b5", "bwd"} & set(rows) else ():
         q, k, v = inputs(B, S, H)
         qs = fb.scale_q(q)
         flops = 4.0 * B * H * S * S * 64
@@ -159,18 +186,46 @@ def run(baseline: Path) -> dict:
             call("flash_attn_fwd_lse", qs.data_ptr(), k.data_ptr(), v.data_ptr(), ob.data_ptr(),
                  l2b.data_ptr(), B, H, S, S)
 
-        r = _in_turns(b5_base, lambda: fb.flash_fwd_lse(qs, k, v), n)
-        b5_base()
-        out, l2 = fb.flash_fwd_lse(qs, k, v)
-        r["max_abs_diff"] = (out.float() - ob.float()).abs().max().item()
-        r["l2_max_abs_diff"] = (l2 - l2b).abs().max().item()
-        r["stagings_ms"] = {"x".join(map(str, blocks)): _timed_ms(
-            lambda: fa.flash_attention_two_level(q, k, v, *blocks), n)
-            for blocks in fa.TWO_LEVEL_CONFIGS}
-        res["b5"][name] = r
-        log(f"b5 {name} {fb.FWD_LSE_BLOCKS}", r)
-        print(f"  b10 stagings at {name}: {r['stagings_ms']}", flush=True)
-        del q, k, v, qs, ob, l2b, out, l2
+        if "b5" in rows:
+            r = _in_turns(b5_base, lambda: fb.flash_fwd_lse(qs, k, v), n)
+            b5_base()
+            out, l2 = fb.flash_fwd_lse(qs, k, v)
+            r["max_abs_diff"] = (out.float() - ob.float()).abs().max().item()
+            r["l2_max_abs_diff"] = (l2 - l2b).abs().max().item()
+            r["stagings_ms"] = {"x".join(map(str, blocks)): _timed_ms(
+                lambda: fa.flash_attention_two_level(q, k, v, *blocks), n)
+                for blocks in fa.TWO_LEVEL_CONFIGS}
+            res["b5"][name] = r
+            log(f"b5 {name} {fb.FWD_LSE_BLOCKS}", r)
+            print(f"  b10 stagings at {name}: {r['stagings_ms']}", flush=True)
+            del out, l2
+        if "bwd" in rows:
+            dout = inputs(B, S, H)[0]
+            out, l2 = fb.flash_fwd_lse(qs, k, v)
+            delta = fb.attention_delta(out, dout)
+            dq_b, dk_b, dv_b = (torch.empty_like(x) for x in (qs, k, v))
+            args = [x.data_ptr() for x in (qs, k, v, dout, l2, delta)]
+
+            def bwd_base():
+                call("flash_attn_bwd_dkdv", *args, dk_b.data_ptr(), dv_b.data_ptr(), B, H, S, S)
+                call("flash_attn_bwd_dq", *args, dq_b.data_ptr(), B, H, S, S)
+
+            nb = max(1, math.ceil(n * 2 / 5))  # five products to the forward's two
+            r = _in_turns(bwd_base, lambda: fb.flash_bwd(qs, k, v, dout, l2, delta), nb)
+            bwd_base()
+            got = fb.flash_bwd(qs, k, v, dout, l2, delta)
+            r["max_abs_diff"] = max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(got, (dq_b, dk_b, dv_b)))
+            r["rel_diff"] = {nm: ((a.float() - b.float()).abs().max()
+                                  / b.float().abs().max()).item()
+                             for nm, a, b in zip(("dq", "dk", "dv"), got, (dq_b, dk_b, dv_b))}
+            r["tflops"] = 5 * flops / 2 / (sum(r["this_ms"]) / 2) / 1e9
+            res["bwd"][name] = r
+            log(f"bwd {name}", r)
+            print(f"  bwd relative differences {r['rel_diff']}, {r['tflops']:.1f} TFLOP/s",
+                  flush=True)
+            del dout, out, l2, delta, dq_b, dk_b, dv_b, got
+        del q, k, v, qs, ob, l2b
         torch.cuda.empty_cache()
     return res
 
@@ -178,6 +233,7 @@ def run(baseline: Path) -> dict:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, help="root of the other checkout")
+    ap.add_argument("--rows", default=",".join(ROWS), help=f"comma-separated subset of {ROWS}")
     ap.add_argument("--out", default="results/bench_attention_fwd.json")
     args = ap.parse_args(argv)
 
@@ -191,7 +247,10 @@ def main(argv: list[str] | None = None) -> int:
 
     info = device_info()
     print(f"device {info['device']}, power limit {info['power_limit']}", flush=True)
-    res = {**info, "fwd_lse_blocks": list(FWD_LSE_BLOCKS), **run(Path(args.baseline))}
+    rows = tuple(r for r in args.rows.split(",") if r)
+    if unknown := set(rows) - set(ROWS):
+        ap.error(f"unknown rows {sorted(unknown)}")
+    res = {**info, "fwd_lse_blocks": list(FWD_LSE_BLOCKS), **run(Path(args.baseline), rows)}
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     return 0

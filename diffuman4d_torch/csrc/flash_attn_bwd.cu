@@ -1,289 +1,530 @@
-// Flash attention backward for Hopper (sm_90a), head dim 64, non-causal, no mask.
+// Flash attention backward at head dim 64, written for Hopper (sm_90a): one
+// fused kernel with TMA loads, warpgroup MMA (wgmma), warp specialisation and
+// a deterministic, ordered accumulation of dQ.
 //
-// Replaces the TPU Pallas kernels of diffuman4d_tpu/ops/flash_backward.py:
-//   * _dkdv_kernel (via _bwd_impl) -> flash_bwd_dkdv_kernel: one block owns a
-//     64-key K/V tile and streams the queries;
-//   * _dq_kernel (via _bwd_impl)   -> flash_bwd_dq_kernel: one block owns 64
-//     query rows and streams the keys.
-// The forward that also emits the per-query base-2 logsumexp L2 (_fwd_kernel)
-// is flash_fwd_kernel<64, 64, 2> of flash_attn.cu with its L2 output on.
+// Replaces both TPU Pallas kernels of _bwd_impl in
+// diffuman4d_tpu/ops/flash_backward.py: _dkdv_kernel (one block owns a key
+// tile and streams the queries) and _dq_kernel (one block owns a query tile
+// and streams the keys). The forward that also emits the per-query base-2
+// logsumexp L2 (_fwd_kernel) is flash_fwd_wgmma_kernel of
+// flash_attn_hopper.cu with its L2 output on.
 //
 // Inputs are (B, S, H, 64) bf16: Qs (Q pre-scaled by log2(e)/sqrt(d) and
-// rounded to bf16 by the wrapper, the same tensor the forward scored), K, V,
-// dO; and (B, H, Sq) fp32: L2 and delta = rowsum(dO * O). With
+// rounded to bf16 by the wrapper, the tensor the forward scored), K, V, dO;
+// and (B, H, Sq) fp32: L2 and delta = rowsum(dO * O). With
 // S2 = Qs K^T (fp32, base-2 logits):
 //   P  = exp2(S2 - L2)             dV = bf16(P)^T  dO
 //   dP = dO V^T                    dS = P * (dP - delta)
 //   dQ = bf16(dS) K / sqrt(d)      dK = ln2 * bf16(dS)^T Qs
-// P and dS are rounded to bf16 before their products, every product
-// accumulates in fp32 registers, and each output is written once: there is
-// no atomic accumulation, so the result is bit-repeatable.
+// P and dS are rounded to bf16 before their products and every product
+// accumulates in fp32.
 //
-// What bounds it: like the forward, 4*B*H*Sq*Sk*d tensor-core FLOPs per
-// matrix product (five nominal products, seven executed: both kernels
-// recompute S2 and dP) against O(B*H*S*d) bytes: the tensor cores and the
-// exp2 / elementwise chain between the products. Design: 4 warps per block,
-// each owning 16 rows of the block's tile; the streamed operand pair
-// (K, V for dQ; Qs, dO for dK/dV) is double-buffered through shared memory
-// with cp.async; products are mma.sync m16n8k16 bf16 with the owned tile's
-// fragments and the accumulators in registers. dK/dV works on the transposed
-// scores (keys as rows), so P^T and dS^T come out of the accumulators already
-// in the A-fragment layout of the next product, as P does in the forward.
-// Ragged S: out-of-range rows load as zeros; out-of-range keys get P = 0;
-// out-of-range queries load L2 = +1e30 (P = 0) and delta = 0; out-of-range
-// rows are not stored.
+// What bounds it: five products of 2 B H Sq Sk 64 FLOPs each against
+// O(B H S 64) bytes: the tensor cores, the exp2 / elementwise chain between
+// the products, and the traffic of the fp32 dQ partials (one 64 x 64 tile
+// per query block and key block, mostly in L2). Design (FlashAttention-3's
+// backward, in its deterministic mode):
+//   * One block owns BK = 128 keys of one (batch, head): warpgroup 0
+//     produces, warpgroups 1 and 2 consume 64 keys each. K and V arrive once
+//     by TMA; dK and dV stay in fp32 registers for the block's life. The
+//     queries stream in blocks of BQ = 64 (Qs and dO tiles by TMA, L2 and
+//     delta by the producer warp's loads) through a ring of STAGES stages
+//     with full / empty mbarriers. Rows past a batch's S arrive as zeros
+//     (the (64, H, S, B) tensor maps); queries past Sq get L2 = +1e30 and
+//     delta = 0, keys past Sk get P = 0, so both contribute nothing.
+//   * Five wgmma products per query block and consumer warpgroup, on the
+//     transposed scores (keys as rows): S^T = K Qs^T and dP^T = V dO^T (both
+//     operands from shared memory, K-major); dV += P^T dO and
+//     dK += dS^T Qs with P^T and dS^T packed to bf16 in registers (the
+//     accumulator layout is the register A-fragment layout) and dO, Qs as
+//     MN-major B operands; the consumers store bf16(dS^T) to shared memory
+//     (128 key rows of 64 queries, 128-byte swizzle, two buffers), and
+//     dQ_partial = dS K (64 x 64, 128 keys deep) reads it back as an
+//     MN-major A operand with K as an MN-major B. The two warpgroups take
+//     the dQ product of alternate query blocks.
+//   * Deterministic dQ: dq_accum (B H, Sq, 64) fp32 and one semaphore per
+//     (batch, head, query block) in global memory. Blocks take their (head,
+//     key block) tile from a counter (zeroed per call with the semaphores)
+//     in the order they start, key block fastest, so key block n - 1's
+//     block is resident or done when key block n's block waits on it. The
+//     consumer warpgroup that made a dQ partial puts it in its fp32 buffer
+//     in shared memory; the producer warpgroup's second warp (the dQ
+//     writer) waits until the semaphore of that query block reads n, adds
+//     the buffer to the dq_accum tile with one bulk reduce-add (key block 0
+//     stores it), waits for the add to complete and sets the semaphore to
+//     n + 1. So every element of dQ gets its fp32 terms in key-block order
+//     and the result is bit-repeatable, while the consumers never wait on
+//     global memory. A second kernel writes dQ = bf16(dq_accum / sqrt(d))
+//     in (B, Sq, H, 64).
+//   * Each consumer waits on every product before it touches the registers
+//     a product reads or writes (no wgmma input register is rewritten while
+//     it is in flight: ptxas would serialise the pipeline, note C7513). A
+//     form that let block m - 1's dV / dK / dQ products run behind block
+//     m's S^T and dP^T drew ptxas's C7514 note (serialised) and more spills,
+//     and was slower on the H100.
 
-#include "mma_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int T = 64;  // tile edge: 64 rows (queries or keys) of head dim 64
-constexpr int NTHREADS = 128;
+constexpr int HD = 64;       // head dim
+constexpr int ROW = HD * 2;  // bytes of one token row: one 128-byte swizzle row
+constexpr int BQ = 64;       // queries per streamed block (BWD_BLOCK_Q of ops/flash_backward.py)
+constexpr int BK = 128;      // keys per block: two consumer warpgroups of 64
+constexpr int STAGES = 3;    // depth of the Qs / dO ring
+constexpr int NCONS = 256;   // consumer threads
 constexpr float LN2 = 0.6931471805599453f;
+// Error code (not a cudaError_t) returned when the driver refuses a TMA map.
+constexpr int ERR_TENSOR_MAP = 1000;
 
-// rows row0 .. row0+63 of a (S, H, 64) slice -> swizzled 64 x 64 shared tile
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long rs, int row0, int nrows,
-                                          int tid) {
-  for (int i = tid; i < T * 8; i += NTHREADS) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool ok = row0 + r < nrows;
-    cp_async_16(dst + swz<64>(r, c), src + (long)(ok ? row0 + r : 0) * rs + c, ok);
-  }
+// Shared memory of one block; every tile starts on a 1024-byte boundary.
+struct Layout {
+  static constexpr int TILE_Q = BQ * ROW;  // one Qs or dO block
+  static constexpr int TILE_K = BK * ROW;  // K, V, or one dS^T buffer (BK keys x BQ queries)
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = TILE_K;
+  static constexpr int DS_OFF = 2 * TILE_K;  // two dS^T buffers
+  static constexpr int Q_OFF = 4 * TILE_K;
+  static constexpr int DO_OFF = Q_OFF + STAGES * TILE_Q;
+  static constexpr int TILE_DQ = BQ * HD * 4;  // one fp32 dQ partial, row-major
+  static constexpr int DQ_OFF = DO_OFF + STAGES * TILE_Q;  // one per consumer warpgroup
+  static constexpr int VEC_OFF = DQ_OFF + 2 * TILE_DQ;     // per stage: L2[BQ], delta[BQ]
+  static constexpr int BAR_OFF = VEC_OFF + STAGES * 2 * BQ * 4;
+  // K/V full; per stage full, empty; per dQ buffer full, empty; then the
+  // block's tile index
+  static constexpr int TILE_IDX_OFF = BAR_OFF + (1 + 2 * STAGES + 4) * 8;
+  static constexpr int SMEM = TILE_IDX_OFF + 16 + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
 }
 
-// A fragments (16 rows x 64 depth) of rows row0.. of a shared tile
-__device__ __forceinline__ void load_a(uint32_t (&f)[4][4], const bf16* tile, int row0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(f[kk], tile + swz<64>(row0 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+// Barrier `id` over `n` threads (ids 1.. are free: 0 is __syncthreads).
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// acc (16 x 64) += A (16 x 64) * Bt^T; Bt: shared tile whose 64 rows are the
-// output columns and whose columns are the contraction index
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                       const bf16* bt, int lane) {
+// Order this thread's shared-memory stores before later reads by the async
+// proxy (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Order global accesses of the generic proxy (the semaphores) with those of
+// the async proxy (the bulk copies).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Bulk copy (TMA, no tensor map) of `bytes` from shared to global memory:
+// a store, or an fp32 add into what global memory holds.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, int bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::
+                   "l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until this thread's bulk copies have completed (their writes made).
+__device__ __forceinline__ void bulk_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// d (64 x 64) = A (64 x 16) B (64 x 16)^T, both K-major (the first 16-deep step)
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 64) [+]= A (64 x 16) B (16 x 64), both MN-major
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) = A (64 x 16) B (16 x 64), both MN-major (the first step)
+__device__ __forceinline__ void wgmma_ss_tt_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+
+// D (64 x 64) = A (64 x 64) B^T with A, B K-major 64-wide tiles in shared memory
+__device__ __forceinline__ void mma_kmajor(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_ss_first(d, da, db);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 1; kk < HD / 16; ++kk) wgmma_m64n64k16_ss(d, da + 2 * kk, db + 2 * kk, 1);
+}
+
+// D (64 x 64) += X (64 x 64, bf16 A fragments in registers) B; B: 64 rows
+// of the contraction index, MN-major in shared memory
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&x)[16], uint64_t db) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t b[4];
-      ldmatrix_x4(b, bt + swz<64>(p * 16 + (lane & 7) + (lane >> 4) * 8,
-                                  kk * 16 + ((lane >> 3) & 1) * 8));
-      mma_bf16(acc[2 * p], a[kk], b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], a[kk], b[2], b[3]);
+  for (int kk = 0; kk < BQ / 16; ++kk)
+    wgmma_m64n64k16_rs_tb(d, x[4 * kk], x[4 * kk + 1], x[4 * kk + 2], x[4 * kk + 3],
+                          db + 128 * kk, 1);
+}
+
+// D (64 x 64) = A B, contraction over the BK rows of two MN-major tiles
+// (A: BK rows of 64 M-columns, B: BK rows of 64 N-columns)
+__device__ __forceinline__ void mma_mnmajor(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_ss_tt_first(d, da, db);
+#pragma unroll
+  for (int kk = 1; kk < BK / 16; ++kk) wgmma_ss_tt(d, da + 128 * kk, db + 128 * kk, 1);
+}
+
+// Store the bf16 A fragments x (rows row0 and row0 + 8 of this thread,
+// columns 8j + 2tq) into a tile of 128-byte rows with the 128-byte swizzle.
+__device__ __forceinline__ void store_frag(unsigned char* tile, const uint32_t (&x)[16], int row0,
+                                           int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      *reinterpret_cast<uint32_t*>(tile + row * ROW + ((j ^ (row & 7)) << 4) + 4 * tq) =
+          x[2 * j + r];
     }
   }
 }
 
-// acc (16 x 64) += bf16(X) (16 x 64, accumulator layout) * Bm; Bm: shared
-// tile whose 64 rows are the contraction index
-__device__ __forceinline__ void mma_nn(float (&acc)[8][4], const float (&x)[8][4], const bf16* bm,
-                                       int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, bm + swz<64>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                        p * 16 + (lane >> 4) * 8));
-      mma_bf16(acc[2 * p], a, b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ l2,
+                           const float* __restrict__ delta, float* __restrict__ dq_accum,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int* __restrict__ sems,
+                           int H, int Sq, int Sk) {
+  using L = Layout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* dq_full = empty + STAGES;
+  uint64_t* dq_empty = dq_full + 2;
+  int* tile_idx = reinterpret_cast<int*>(sm + L::TILE_IDX_OFF);
+  float* vec = reinterpret_cast<float*>(sm + L::VEC_OFF);
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nk = (Sk + BK - 1) / BK, nq = (Sq + BQ - 1) / BQ;
+  if (tid == 0) {
+    // the tile counter hands out (head, key block) tiles in the order the
+    // blocks start, so a block never waits on one that has not started
+    *tile_idx = atomicAdd(sems, 1);
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA bytes' arrival + the producer warp's L2 / delta
+      mbar_init(empty + s, NCONS);
     }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&x)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
-}
-
-// rows r0 = row0 + g and r0 + 8 of a 16 x 64 accumulator -> bf16 global rows
-__device__ __forceinline__ void store_rows(bf16* dst, long rs, const float (&acc)[8][4], int r0,
-                                           int nrows, int t, float mul) {
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (r0 < nrows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long)r0 * rs + col) =
-          __floats2bfloat162_rn(acc[dt][0] * mul, acc[dt][1] * mul);
-    if (r0 + 8 < nrows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long)(r0 + 8) * rs + col) =
-          __floats2bfloat162_rn(acc[dt][2] * mul, acc[dt][3] * mul);
-  }
-}
-
-// ---------------------------------------------------------------- dQ
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ l2, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int H, int Sq, int Sk, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // 64 x 64
-  bf16* sDO = sQ + T * 64;                        // 64 x 64
-  bf16* sK = sDO + T * 64;                        // 2 stages x 64 x 64
-  bf16* sV = sK + 2 * T * 64;                     // 2 stages x 64 x 64
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * T;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long rs = (long)H * 64;
-  const long qoff = ((long)b * Sq * H + h) * 64, koff = ((long)b * Sk * H + h) * 64;
-
-  load_tile(sQ, qs + qoff, rs, q0, Sq, tid);
-  load_tile(sDO, dout + qoff, rs, q0, Sq, tid);
-  load_tile(sK, k + koff, rs, 0, Sk, tid);
-  load_tile(sV, v + koff, rs, 0, Sk, tid);
-  cp_async_commit();
-
-  const int r0 = q0 + warp * 16 + g;
-  float l2r[2], dlr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    l2r[i] = r < Sq ? l2[(long)bh * Sq + r] : 0.f;
-    dlr[i] = r < Sq ? delta[(long)bh * Sq + r] : 0.f;
-  }
-
-  float acc[8][4];
-  zero(acc);
-  uint32_t qf[4][4], dof[4][4];
-  const int nblk = (Sk + T - 1) / T;
-  for (int j = 0; j < nblk; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nblk) {
-      load_tile(sK + (st ^ 1) * T * 64, k + koff, rs, (j + 1) * T, Sk, tid);
-      load_tile(sV + (st ^ 1) * T * 64, v + koff, rs, (j + 1) * T, Sk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(dq_full + w, 128);
+      mbar_init(dq_empty + w, 1);
     }
-    __syncthreads();
-    if (j == 0) {
-      load_a(qf, sQ, warp * 16, lane);
-      load_a(dof, sDO, warp * 16, lane);
-    }
-    const bf16* sk = sK + st * T * 64;
-    const bf16* sv = sV + st * T * 64;
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int tile = *tile_idx;
+  const int n = tile % nk, bh = tile / nk, b = bh / H, h = bh % H;
+  const int k0 = n * BK;
 
-    float s[8][4], dp[8][4];
-    zero(s);
-    mma_nt(s, qf, sk, lane);  // S2 = Qs K^T
-    zero(dp);
-    mma_nt(dp, dof, sv, lane);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * T + nt * 8 + 2 * t + (e & 1);
-        const float p = key < Sk ? exp2f(s[nt][e] - l2r[e >> 1]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dlr[e >> 1]);  // dS
+  if (wg == 0) {
+    // producer: lane 0 of warp 0 issues the copies, its warp loads L2 / delta
+    warpgroup_reg_dealloc<24>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * L::TILE_K);
+        tma_load_4d(sm + L::K_OFF, &tm_k, kv_full, 0, h, k0, b);
+        tma_load_4d(sm + L::V_OFF, &tm_v, kv_full, 0, h, k0, b);
+      }
+      const float* l2b = l2 + (long)bh * Sq;
+      const float* dlb = delta + (long)bh * Sq;
+      for (int m = 0; m < nq; ++m) {
+        const int st = m % STAGES;
+        mbar_wait(empty + st, ((m / STAGES) & 1) ^ 1);  // the first round passes at once
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + st, 2 * L::TILE_Q);
+          tma_load_4d(sm + L::Q_OFF + st * L::TILE_Q, &tm_q, full + st, 0, h, m * BQ, b);
+          tma_load_4d(sm + L::DO_OFF + st * L::TILE_Q, &tm_do, full + st, 0, h, m * BQ, b);
+        }
+        float* v = vec + st * 2 * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          const int q = m * BQ + i;
+          v[i] = q < Sq ? l2b[q] : 1e30f;  // P = 0 for absent queries
+          v[BQ + i] = q < Sq ? dlb[q] : 0.f;
+        }
+        mbar_arrive(full + st);
+      }
+    } else if (tid < 64) {
+      // the dQ writer: adds each partial to dq_accum once key block n - 1
+      // has added its own (key block 0 stores it), then hands the tile on
+      const int lane = tid - 32;
+      int* sem = sems + 1 + (long)bh * nq;
+      float* accb = dq_accum + (long)bh * Sq * HD;
+      for (int m = 0; m < nq; ++m) {
+        const int w = m & 1;  // the consumer warpgroup that made this partial
+        mbar_wait(dq_full + w, (m >> 1) & 1);
+        if (lane == 0) {
+          float* dst = accb + (long)m * BQ * HD;
+          const void* src = sm + L::DQ_OFF + w * L::TILE_DQ;
+          const int bytes = min(BQ, Sq - m * BQ) * HD * 4;  // rows past Sq are not stored
+          if (n > 0) {
+            while (ld_acquire(sem + m) < n) {
+            }
+            fence_proxy_async_global();
+            bulk_reduce_add_f32(dst, src, bytes);
+          } else {
+            bulk_store(dst, src, bytes);
+          }
+          bulk_commit_and_wait();
+          fence_proxy_async_global();
+          st_release(sem + m, n + 1);
+          mbar_arrive(dq_empty + w);
+        }
+        __syncwarp();
       }
     }
-    mma_nn(acc, s, sk, lane);  // dQ += bf16(dS) K
-    __syncthreads();     // this stage may be refilled next iteration
+  } else {
+    // consumers: 64 keys per warpgroup
+    warpgroup_reg_alloc<240>();
+    const int cw = wg - 1, t = tid % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
+    const uint64_t desc_kw = desc_sw128(sm + L::K_OFF + cw * 64 * ROW);
+    const uint64_t desc_vw = desc_sw128(sm + L::V_OFF + cw * 64 * ROW);
+    const uint64_t desc_k = desc_sw128(sm + L::K_OFF);  // all BK keys: B of dQ
+    // this thread's accumulator rows: keys r0 and r0 + 8 of the block
+    const int r0 = cw * 64 + warp * 16 + lane / 4;
+    const bool key_in[2] = {k0 + r0 < Sk, k0 + r0 + 8 < Sk};
+    float* dq_buf = reinterpret_cast<float*>(sm + L::DQ_OFF + cw * L::TILE_DQ);
+
+    float dk_acc[32], dv_acc[32], s[32], dp[32], dq[32];
+    uint32_t pt[16], dst[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int m = 0; m < nq; ++m) {
+      const int st = m % STAGES;
+      const uint64_t desc_q = desc_sw128(sm + L::Q_OFF + st * L::TILE_Q);
+      const uint64_t desc_do = desc_sw128(sm + L::DO_OFF + st * L::TILE_Q);
+      const float* l2s = vec + st * 2 * BQ;
+      const float* dls = l2s + BQ;
+      unsigned char* ds_buf = sm + L::DS_OFF + (m & 1) * L::TILE_K;
+      mbar_wait(full + st, (m / STAGES) & 1);
+
+      // S^T = K Qs^T and dP^T = V dO^T: rows are keys, columns queries
+      wgmma_fence();
+      mma_kmajor(s, desc_kw, desc_q);
+      mma_kmajor(dp, desc_vw, desc_do);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // P^T and dS^T; register 4j + 2r + e is row r0 + 8r, query 8j + 2tq + e
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(l2s + 8 * j + 2 * tq);
+        const float2 d = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * tq);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r;
+          const float p0 = key_in[r] ? ex2(s[i] - l.x) : 0.f;
+          const float p1 = key_in[r] ? ex2(s[i + 1] - l.y) : 0.f;
+          pt[2 * j + r] = pack_bf16(p0, p1);
+          dst[2 * j + r] = pack_bf16(p0 * (dp[i] - d.x), p1 * (dp[i + 1] - d.y));
+        }
+      }
+      store_frag(ds_buf, dst, r0, tq);
+      fence_proxy_async();
+
+      // dV += P^T dO, dK += dS^T Qs
+      wgmma_fence();
+      mma_rs(dv_acc, pt, desc_do);
+      mma_rs(dk_acc, dst, desc_q);
+      wgmma_commit();
+      named_bar_sync(1, NCONS);  // both warpgroups' halves of dS^T are stored
+      const bool mine = (m & 1) == cw;
+      if (mine) {
+        // dQ_partial = dS K over the block's BK keys
+        wgmma_fence();
+        mma_mnmajor(dq, desc_sw128(ds_buf), desc_k);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pt);
+      fence_regs(dst);
+      mbar_arrive(empty + st);
+      if (mine) {
+        // hand the partial to the dQ writer through this warpgroup's buffer
+        fence_regs(dq);
+        mbar_wait(dq_empty + cw, ((m >> 1) & 1) ^ 1);  // the first round passes at once
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(dq_buf + (warp * 16 + lane / 4 + 8 * r) * HD + 8 * j +
+                                       2 * tq) = make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        fence_proxy_async();
+        mbar_arrive(dq_full + cw);
+      }
+    }
+
+    const long rs = (long)H * HD;  // elements between consecutive tokens
+    bf16* dkb = dk + ((long)b * Sk * H + h) * HD;
+    bf16* dvb = dv + ((long)b * Sk * H + h) * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + r0 + 8 * r;
+      if (!key_in[r]) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key * rs + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(dk_acc[i] * LN2, dk_acc[i + 1] * LN2);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key * rs + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
   }
-  store_rows(dq + qoff, rs, acc, r0, Sq, t, scale);
 }
 
-// ------------------------------------------------------------- dK, dV
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkdv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ l2, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);        // 64 x 64
-  bf16* sV = sK + T * 64;                               // 64 x 64
-  bf16* sQ = sV + T * 64;                               // 2 stages x 64 x 64
-  bf16* sDO = sQ + 2 * T * 64;                          // 2 stages x 64 x 64
-  float* sL2 = reinterpret_cast<float*>(sDO + 2 * T * 64);  // 2 stages x 64
-  float* sDl = sL2 + 2 * T;                             // 2 stages x 64
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * T;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long rs = (long)H * 64;
-  const long qoff = ((long)b * Sq * H + h) * 64, koff = ((long)b * Sk * H + h) * 64;
-  const float* l2b = l2 + (long)bh * Sq;
-  const float* dlb = delta + (long)bh * Sq;
-
-  auto load_q = [&](int blk, int stage) {
-    const int q0 = blk * T;
-    load_tile(sQ + stage * T * 64, qs + qoff, rs, q0, Sq, tid);
-    load_tile(sDO + stage * T * 64, dout + qoff, rs, q0, Sq, tid);
-    if (tid < T) {
-      const bool ok = q0 + tid < Sq;
-      sL2[stage * T + tid] = ok ? l2b[q0 + tid] : 1e30f;  // P = 0 for absent queries
-      sDl[stage * T + tid] = ok ? dlb[q0 + tid] : 0.f;
-    }
-  };
-
-  load_tile(sK, k + koff, rs, k0, Sk, tid);
-  load_tile(sV, v + koff, rs, k0, Sk, tid);
-  load_q(0, 0);
-  cp_async_commit();
-
-  float dk_acc[8][4], dv_acc[8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  uint32_t kf[4][4], vf[4][4];
-  const int nblk = (Sq + T - 1) / T;
-  for (int i = 0; i < nblk; ++i) {
-    const int st = i & 1;
-    if (i + 1 < nblk) {
-      load_q(i + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (i == 0) {
-      load_a(kf, sK, warp * 16, lane);
-      load_a(vf, sV, warp * 16, lane);
-    }
-    const bf16* sq = sQ + st * T * 64;
-    const bf16* sdo = sDO + st * T * 64;
-    const float* sl2 = sL2 + st * T;
-    const float* sdl = sDl + st * T;
-
-    float s[8][4], dp[8][4];
-    zero(s);
-    mma_nt(s, kf, sq, lane);  // S2^T = K Qs^T: rows are keys, columns are queries
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float2 l = *reinterpret_cast<const float2*>(sl2 + nt * 8 + 2 * t);
-      s[nt][0] = exp2f(s[nt][0] - l.x);  // P^T
-      s[nt][1] = exp2f(s[nt][1] - l.y);
-      s[nt][2] = exp2f(s[nt][2] - l.x);
-      s[nt][3] = exp2f(s[nt][3] - l.y);
-    }
-    mma_nn(dv_acc, s, sdo, lane);  // dV += bf16(P^T) dO
-    zero(dp);
-    mma_nt(dp, vf, sdo, lane);  // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float2 d = *reinterpret_cast<const float2*>(sdl + nt * 8 + 2 * t);
-      s[nt][0] *= dp[nt][0] - d.x;  // dS^T
-      s[nt][1] *= dp[nt][1] - d.y;
-      s[nt][2] *= dp[nt][2] - d.x;
-      s[nt][3] *= dp[nt][3] - d.y;
-    }
-    mma_nn(dk_acc, s, sq, lane);  // dK += bf16(dS^T) Qs
-    __syncthreads();        // this stage may be refilled next iteration
+// dq (B, Sq, H, 64) bf16 = dq_accum (B H, Sq, 64) fp32 * scale, 8 values a thread
+__global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int H,
+                                  int Sq, long n8, float scale) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n8;
+       i += (long)gridDim.x * blockDim.x) {
+    const long e = 8 * i, row = e / HD;
+    const int d = (int)(e % HD), q = (int)(row % Sq);
+    const long bh = row / Sq, b = bh / H, h = bh % H;
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(acc + e));
+    const float4 c = __ldcs(reinterpret_cast<const float4*>(acc + e + 4));
+    uint4 out;
+    out.x = pack_bf16(a.x * scale, a.y * scale);
+    out.y = pack_bf16(a.z * scale, a.w * scale);
+    out.z = pack_bf16(c.x * scale, c.y * scale);
+    out.w = pack_bf16(c.z * scale, c.w * scale);
+    *reinterpret_cast<uint4*>(dq + ((b * Sq + q) * H + h) * HD + d) = out;
   }
-  const int r0 = k0 + warp * 16 + g;
-  store_rows(dk + koff, rs, dk_acc, r0, Sk, t, LN2);
-  store_rows(dv + koff, rs, dv_acc, r0, Sk, t, 1.f);
+}
+
+// The five products of the kernel above on one tile, for the card tests:
+// TMA loads of Qs, dO (64 rows each), K and V (128 rows each), then
+// (1) S^T = K[:64] Qs^T, (2) dP^T = V[:64] dO^T (shared-memory operands,
+// K-major), (3) bf16(S^T) dO and (4) bf16(dP^T) Qs (A from registers, B
+// MN-major), and (5) T^T K, where T (128 x 64) stacks bf16(S^T) over
+// bf16(dP^T), stored to shared memory by the threads and read back as an
+// MN-major A operand. out: five 64 x 64 fp32 matrices.
+__global__ void __launch_bounds__(128)
+    bwd_probe_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  unsigned char *sq = sm, *sdo = sm + BQ * ROW, *sk = sdo + BQ * ROW, *sv = sk + BK * ROW;
+  unsigned char* sds = sv + BK * ROW;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sds + BK * ROW);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, tq = lane % 4;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, 2 * (BQ + BK) * ROW);
+    tma_load_4d(sq, &tm_q, bar, 0, 0, 0, 0);
+    tma_load_4d(sdo, &tm_do, bar, 0, 0, 0, 0);
+    tma_load_4d(sk, &tm_k, bar, 0, 0, 0, 0);
+    tma_load_4d(sv, &tm_v, bar, 0, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float s[32], dp[32], a3[32], a4[32], a5[32];
+  uint32_t ps[16], pdp[16];
+  const int r0 = warp * 16 + lane / 4;
+  auto put = [&](int which, const float(&x)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      out[which * 4096 + (r0 + 8 * ((i >> 1) & 1)) * 64 + (i / 4) * 8 + 2 * tq + (i & 1)] = x[i];
+  };
+  wgmma_fence();
+  mma_kmajor(s, desc_sw128(sk), desc_sw128(sq));
+  mma_kmajor(dp, desc_sw128(sv), desc_sw128(sdo));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  put(0, s);
+  put(1, dp);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    ps[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    pdp[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+  }
+  store_frag(sds, ps, r0, tq);
+  store_frag(sds, pdp, 64 + r0, tq);
+  fence_proxy_async();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a3[i] = a4[i] = 0.f;
+  wgmma_fence();
+  mma_rs(a3, ps, desc_sw128(sdo));
+  mma_rs(a4, pdp, desc_sw128(sq));
+  mma_mnmajor(a5, desc_sw128(sds), desc_sw128(sk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(a3);
+  fence_regs(a4);
+  fence_regs(a5);
+  put(2, a3);
+  put(3, a4);
+  put(4, a5);
 }
 
 bool bad_sizes(int B, int H, int Sq, int Sk) {
@@ -292,39 +533,53 @@ bool bad_sizes(int B, int H, int Sq, int Sk) {
 
 }  // namespace
 
-// qs, dout, dq: (B, Sq, H, 64); k, v: (B, Sk, H, 64); contiguous bf16, 16-byte
-// aligned. l2, delta: (B, H, Sq) fp32. Returns a cudaError_t code (0 on success).
-extern "C" int flash_attn_bwd_dq(const void* qs, const void* k, const void* v, const void* dout,
-                                 const void* l2, const void* delta, void* dq, int B, int H, int Sq,
-                                 int Sk, void* stream) {
+// qs, dout, dq: (B, Sq, H, 64); k, v, dk, dv: (B, Sk, H, 64); contiguous bf16,
+// 16-byte aligned. l2, delta: (B, H, Sq) fp32. Scratch: dq_accum
+// (B H, Sq, 64) fp32 and sems, 1 + B H ceil(Sq / 64) int32 (zeroed here).
+// dQ, dK and dV in one launch of the fused kernel plus dQ's conversion.
+// Returns a cudaError_t code (0 on success), or ERR_TENSOR_MAP.
+extern "C" int flash_attn_bwd_fused(const void* qs, const void* k, const void* v,
+                                    const void* dout, const void* l2, const void* delta, void* dq,
+                                    void* dk, void* dv, void* dq_accum, void* sems, int B, int H,
+                                    int Sq, int Sk, void* stream) {
   if (bad_sizes(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = (size_t)6 * T * 64 * sizeof(bf16);
-  auto kern = flash_bwd_dq_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap tq, tdo, tk, tv;
+  if (!encode_bshd64(&tq, qs, B, Sq, H, BQ) || !encode_bshd64(&tdo, dout, B, Sq, H, BQ) ||
+      !encode_bshd64(&tk, k, B, Sk, H, BK) || !encode_bshd64(&tv, v, B, Sk, H, BK))
+    return ERR_TENSOR_MAP;
+  const long nq = (Sq + BQ - 1) / BQ, nk = (Sk + BK - 1) / BK;
+  cudaError_t err = cudaMemsetAsync(sems, 0, (1 + (size_t)B * H * nq) * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + T - 1) / T, B * H);
-  kern<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qs), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(l2),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Sq, Sk, 0.125f);
+  err = cudaFuncSetAttribute(flash_bwd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Layout::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_fused_kernel<<<(unsigned)(B * H * nk), 384, Layout::SMEM, st>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(l2), static_cast<const float*>(delta),
+      static_cast<float*>(dq_accum), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<int*>(sems), H, Sq, Sk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long n8 = (long)B * H * Sq * HD / 8;
+  const long blocks = (n8 + 255) / 256 < 132 * 16 ? (n8 + 255) / 256 : 132 * 16;
+  dq_convert_kernel<<<(unsigned)blocks, 256, 0, st>>>(static_cast<const float*>(dq_accum),
+                                                      static_cast<bf16*>(dq), H, Sq, n8, 0.125f);
   return (int)cudaGetLastError();
 }
 
-// dk, dv: (B, Sk, H, 64) bf16; the other arguments as flash_attn_bwd_dq.
-extern "C" int flash_attn_bwd_dkdv(const void* qs, const void* k, const void* v, const void* dout,
-                                   const void* l2, const void* delta, void* dk, void* dv, int B,
-                                   int H, int Sq, int Sk, void* stream) {
-  if (bad_sizes(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = (size_t)6 * T * 64 * sizeof(bf16) + 4 * T * sizeof(float);
-  auto kern = flash_bwd_dkdv_kernel;
+// Card-test probe of the five products: qs, dout (1, 64, 1, 64), k, v
+// (1, 128, 1, 64) bf16; out (5, 64, 64) fp32 (see bwd_probe_kernel).
+extern "C" int flash_attn_bwd_probe(const void* qs, const void* k, const void* v,
+                                    const void* dout, void* out, void* stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  if (!encode_bshd64(&tq, qs, 1, BQ, 1, BQ) || !encode_bshd64(&tdo, dout, 1, BQ, 1, BQ) ||
+      !encode_bshd64(&tk, k, 1, BK, 1, BK) || !encode_bshd64(&tv, v, 1, BK, 1, BK))
+    return ERR_TENSOR_MAP;
+  const int smem = (2 * BQ + 3 * BK) * ROW + 8 + 1024;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(bwd_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + T - 1) / T, B * H);
-  kern<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qs), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(l2),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk);
+  bwd_probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv,
+                                                                        static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

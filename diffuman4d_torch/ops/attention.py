@@ -33,7 +33,7 @@ head dim takes the plain version on the CPU and raises on CUDA.
 ``implementation="pallas"`` (the JAX package's forced v1) goes to the
 kernel of the head dim; ``"math"`` is the plain version; ``"train"`` is
 the differentiable path: head dim 64 goes to :func:`flash_attention_train`
-(forward with logsumexp plus the hand-written dQ and dK/dV kernels).
+(forward with logsumexp plus the fused hand-written backward).
 """
 
 from __future__ import annotations

@@ -34,8 +34,8 @@ ENTRIES = {
     "flash_attn_single": {"flash_attn_single_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR]},
     "conv3x3": {"conv3x3_fwd": [_PTR] * 7 + [_INT] * 6 + [_PTR]},
     "flash_attn_bwd": {
-        "flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-        "flash_attn_bwd_dkdv": [_PTR] * 8 + [_INT] * 4 + [_PTR],
+        "flash_attn_bwd_fused": [_PTR] * 11 + [_INT] * 4 + [_PTR],
+        "flash_attn_bwd_probe": [_PTR] * 6,
     },
 }
 SOURCES = tuple(ENTRIES)

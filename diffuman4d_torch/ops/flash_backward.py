@@ -1,27 +1,28 @@
 """Differentiable flash attention at head dim 64: forward with logsumexp and
 a hand-written backward, on Hopper, with the plain PyTorch version beside it.
 
-Counterpart of ``diffuman4d_tpu/ops/flash_backward.py``. Three kernel
+Counterpart of ``diffuman4d_tpu/ops/flash_backward.py``. Two kernel
 wrappers, each with its plain version:
 
 * :func:`flash_fwd_lse` replaces ``_fwd`` / ``_fwd_kernel`` (TPU kernel B5):
   the output and the per-query base-2 logsumexp ``L2``
   (``csrc/flash_attn_hopper.cu``, the TMA / wgmma forward of B10 with its L2
   output on, at the one staging :data:`FWD_LSE_BLOCKS`);
-* :func:`flash_bwd_dkdv` replaces ``_dkdv_kernel`` (B6) and
-  :func:`flash_bwd_dq` replaces ``_dq_kernel`` (B7), both of
-  ``csrc/flash_attn_bwd.cu``.
+* :func:`flash_bwd` replaces both kernels of ``_bwd_impl``, ``_dkdv_kernel``
+  (B6) and ``_dq_kernel`` (B7): dQ, dK and dV in one fused TMA / wgmma
+  kernel (``csrc/flash_attn_bwd.cu``) that adds the dQ partials of its key
+  blocks in a fixed order, so its result is bit-repeatable.
 
 :func:`flash_attention_train` ties them into one ``autograd.Function`` on
 ``(B, S, H, 64)``. As in the JAX package, scores run in base 2: the wrapper
-makes ``Qs = round(Q * log2(e)/sqrt(d))`` in the input dtype once and all
-three kernels score with it, so the backward recomputes exactly the P the
+makes ``Qs = round(Q * log2(e)/sqrt(d))`` in the input dtype once and both
+kernels score with it, so the backward recomputes exactly the P the
 forward normalised; ``dK = ln2 * dS^T Qs`` and ``dQ = dS K / sqrt(d)``. P and
 dS are rounded to the input dtype before their products, accumulation is
 fp32, and ``delta = rowsum(dO * O)`` is plain torch. ``L2`` and ``delta``
 are ``(B, H, Sq)`` fp32.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in ``.launches`` and, per
 ``(B, Sq, Sk, H)`` it launched at, in the counter ``.shapes``.
 """
@@ -42,6 +43,9 @@ HEAD_DIM = 64
 # (LSE_BLOCK_* of csrc/flash_attn_hopper.cu), chosen from a sweep of the
 # two-level stagings at the train step's attention shapes on the H100
 FWD_LSE_BLOCKS = (192, 256, 64)
+# queries per streamed block of the fused backward (BQ of csrc/flash_attn_bwd.cu):
+# the size of its per-query-block semaphores
+BWD_BLOCK_Q = 64
 
 
 def scale_q(q: torch.Tensor) -> torch.Tensor:
@@ -86,6 +90,12 @@ def flash_bwd_dq_plain(qs, k, v, dout, l2, delta):
     _, ds = _ds_plain(qs, k, v, dout, l2, delta)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(qs.dtype).float(), k.float())
     return (dq / math.sqrt(qs.shape[-1])).to(qs.dtype)
+
+
+def flash_bwd_plain(qs, k, v, dout, l2, delta):
+    """(dQ, dK, dV): the two functions above, as the fused kernel computes them."""
+    dk, dv = flash_bwd_dkdv_plain(qs, k, v, dout, l2, delta)
+    return flash_bwd_dq_plain(qs, k, v, dout, l2, delta), dk, dv
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -148,29 +158,23 @@ def flash_fwd_lse(qs, k, v):
     return out, l2
 
 
-def flash_bwd_dkdv(qs, k, v, dout, l2, delta):
-    """(dK, dV) (TPU kernel B6 ``_dkdv_kernel``)."""
+def flash_bwd(qs, k, v, dout, l2, delta):
+    """(dQ, dK, dV) in one launch (TPU kernels B6 ``_dkdv_kernel`` and B7
+    ``_dq_kernel``). The kernel's scratch, the fp32 dQ sums and the
+    semaphores that order them, is allocated here per call."""
     if qs.device.type == "cpu":
-        return flash_bwd_dkdv_plain(qs, k, v, dout, l2, delta)
-    (qs, k, v, dout, l2, delta), sizes = _check("flash_bwd_dkdv", qs, k, v, dout, l2, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call(flash_bwd_dkdv, "flash_attn_bwd", "flash_attn_bwd_dkdv", qs, sizes,
-          qs, k, v, dout, l2, delta, dk, dv)
-    return dk, dv
+        return flash_bwd_plain(qs, k, v, dout, l2, delta)
+    (qs, k, v, dout, l2, delta), sizes = _check("flash_bwd", qs, k, v, dout, l2, delta)
+    B, H, Sq, _ = sizes
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    dq_accum = torch.empty((B * H, Sq, HEAD_DIM), dtype=torch.float32, device=qs.device)
+    sems = torch.empty((1 + B * H * -(-Sq // BWD_BLOCK_Q),), dtype=torch.int32, device=qs.device)
+    _call(flash_bwd, "flash_attn_bwd", "flash_attn_bwd_fused", qs, sizes,
+          qs, k, v, dout, l2, delta, dq, dk, dv, dq_accum, sems)
+    return dq, dk, dv
 
 
-def flash_bwd_dq(qs, k, v, dout, l2, delta):
-    """dQ (TPU kernel B7 ``_dq_kernel``)."""
-    if qs.device.type == "cpu":
-        return flash_bwd_dq_plain(qs, k, v, dout, l2, delta)
-    (qs, k, v, dout, l2, delta), sizes = _check("flash_bwd_dq", qs, k, v, dout, l2, delta)
-    dq = torch.empty_like(qs)
-    _call(flash_bwd_dq, "flash_attn_bwd", "flash_attn_bwd_dq", qs, sizes,
-          qs, k, v, dout, l2, delta, dq)
-    return dq
-
-
-for _wrapper in (flash_fwd_lse, flash_bwd_dkdv, flash_bwd_dq):
+for _wrapper in (flash_fwd_lse, flash_bwd):
     _wrapper.launches = 0
     _wrapper.shapes = Counter()
 
@@ -178,37 +182,34 @@ for _wrapper in (flash_fwd_lse, flash_bwd_dkdv, flash_bwd_dq):
 # ------------------------------------------------------------- the public op
 class _FlashTrain(torch.autograd.Function):
     """forward saves qs, k, v, out, L2; backward makes delta in plain torch
-    and calls the dK/dV and dQ functions it was given."""
+    and calls the backward function it was given."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fwd, bwd_dkdv, bwd_dq):
+    def forward(ctx, q, k, v, fwd, bwd):
         qs = scale_q(q)
         out, l2 = fwd(qs, k, v)
         ctx.save_for_backward(qs, k, v, out, l2)
-        ctx.fns = (bwd_dkdv, bwd_dq)
+        ctx.bwd = bwd
         return out
 
     @staticmethod
     def backward(ctx, g):
         qs, k, v, out, l2 = ctx.saved_tensors
-        bwd_dkdv, bwd_dq = ctx.fns
         dout = g.to(qs.dtype).contiguous()
         delta = attention_delta(out, dout)
-        dk, dv = bwd_dkdv(qs, k, v, dout, l2, delta)
-        dq = bwd_dq(qs, k, v, dout, l2, delta)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = ctx.bwd(qs, k, v, dout, l2, delta)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_train_plain(q, k, v):
     """The plain version of :func:`flash_attention_train`: the same
     Function with forward and backward written out in tensor ops."""
-    return _FlashTrain.apply(q, k, v, flash_fwd_lse_plain, flash_bwd_dkdv_plain,
-                             flash_bwd_dq_plain)
+    return _FlashTrain.apply(q, k, v, flash_fwd_lse_plain, flash_bwd_plain)
 
 
 def flash_attention_train(q, k, v):
     """Differentiable attention, (B, S, H, 64) -> (B, S, H, 64). CPU tensors
-    take the plain version; CUDA tensors launch the three kernels."""
+    take the plain version; CUDA tensors launch the two kernels."""
     if q.device.type == "cpu":
         return flash_attention_train_plain(q, k, v)
-    return _FlashTrain.apply(q, k, v, flash_fwd_lse, flash_bwd_dkdv, flash_bwd_dq)
+    return _FlashTrain.apply(q, k, v, flash_fwd_lse, flash_bwd)

@@ -273,39 +273,111 @@ def _row_rel_err(got, want):
 @pytest.mark.parametrize("B,Sq,Sk,H", [(2, 77, 77, 3), (2, 130, 190, 2), (3, 64, 64, 1),
                                        (2, 200, 50, 2), (1, 1, 300, 1), (3, 300, 530, 2)])
 def test_flash_train_kernels_match_plain(gen, B, Sq, Sk, H):
-    """B5 (out, L2), B6 (dK, dV), B7 (dQ) each against its plain version on
-    the same inputs, ragged and Sq != Sk."""
+    """B5 (out, L2) and the fused backward (dQ, dK, dV; B6 + B7) each against
+    its plain version on the same inputs, ragged and Sq != Sk."""
     from diffuman4d_torch.ops import flash_backward as fb
 
     q, k, v, dout = _train_inputs(gen, B, Sq, Sk, H)
     qs = fb.scale_q(q)
-    counts = [f.launches for f in (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)]
+    counts = [f.launches for f in (fb.flash_fwd_lse, fb.flash_bwd)]
     out, l2 = fb.flash_fwd_lse(qs, k, v)
     out_p, l2_p = fb.flash_fwd_lse_plain(qs, k, v)
     # bf16 outputs: 4 ulps of the row's largest entry; L2 is fp32, sums differ in order
     assert _row_rel_err(out, out_p) <= 2 ** -5
     assert (l2 - l2_p).abs().max().item() <= 1e-3
     delta = fb.attention_delta(out_p, dout)
-    dk, dv = fb.flash_bwd_dkdv(qs, k, v, dout, l2_p, delta)
-    dq = fb.flash_bwd_dq(qs, k, v, dout, l2_p, delta)
+    got = fb.flash_bwd(qs, k, v, dout, l2_p, delta)
     torch.cuda.synchronize()
-    assert [f.launches for f in (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)] == [
-        c + 1 for c in counts]
-    assert (B, Sq, Sk, H) in fb.flash_bwd_dq.shapes
-    dk_p, dv_p = fb.flash_bwd_dkdv_plain(qs, k, v, dout, l2_p, delta)
-    dq_p = fb.flash_bwd_dq_plain(qs, k, v, dout, l2_p, delta)
+    assert [f.launches for f in (fb.flash_fwd_lse, fb.flash_bwd)] == [c + 1 for c in counts]
+    assert (B, Sq, Sk, H) in fb.flash_bwd.shapes
     # same roundings on both sides (bf16 P and dS, fp32 sums in another
     # order): 4 bf16 ulps of each batch row's largest gradient entry
-    for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
-        assert torch.isfinite(got).all(), name
-        assert _row_rel_err(got, want) <= 2 ** -5, name
+    for name, g, want in zip(("dq", "dk", "dv"), got, fb.flash_bwd_plain(qs, k, v, dout, l2_p,
+                                                                        delta)):
+        assert g.shape == want.shape and g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g).all(), name
+        assert _row_rel_err(g, want) <= 2 ** -5, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_keeps_to_each_batch(gen):
+    """The fused backward on B = 4 batches of different scale whose K and V
+    are followed by NaN in memory, Sq != Sk, neither a multiple of a tile:
+    every batch within the bound of its plain version."""
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    q, k, v = _per_batch_scaled_inputs(gen, 4, 190, 333, 2)
+    dout = _randn(gen, 4, 190, 2, 64).bfloat16()
+    qs = fb.scale_q(q)
+    out, l2 = fb.flash_fwd_lse_plain(qs, k, v)
+    delta = fb.attention_delta(out, dout)
+    got = fb.flash_bwd(qs, k, v, dout, l2, delta)
+    torch.cuda.synchronize()
+    for name, g, want in zip(("dq", "dk", "dv"), got, fb.flash_bwd_plain(qs, k, v, dout, l2,
+                                                                        delta)):
+        assert torch.isfinite(g).all(), name
+        assert _row_rel_err(g, want) <= 2 ** -5, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_is_bit_repeatable_over_many_key_blocks(gen):
+    """B1 S4096 H4: 32 key blocks of 128 per head add their dQ partials in
+    turn; three launches give the same dQ, dK and dV bit for bit."""
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    q, k, v, dout = _train_inputs(gen, 1, 4096, 4096, 4)
+    qs = fb.scale_q(q)
+    out, l2 = fb.flash_fwd_lse(qs, k, v)
+    delta = fb.attention_delta(out, dout)
+    runs = [fb.flash_bwd(qs, k, v, dout, l2, delta) for _ in range(3)]
+    torch.cuda.synchronize()
+    for name, first, *again in zip(("dq", "dk", "dv"), *runs):
+        assert torch.isfinite(first).all(), name
+        assert all(torch.equal(first, x) for x in again), name
+
+
+@pytest.fixture
+def bwd_probe(gen):
+    """The five products of csrc/flash_attn_bwd.cu on one tile (see
+    bwd_probe_kernel), with qs, dO (64 rows) and K, V (128 rows)."""
+    from diffuman4d_torch.ops import cuda_build
+
+    qs, dout = (_randn(gen, 1, 64, 1, 64).bfloat16() for _ in range(2))
+    k, v = (_randn(gen, 1, 128, 1, 64).bfloat16() for _ in range(2))
+    out = torch.empty((5, 64, 64), device="cuda")
+    fn = cuda_build.entry("flash_attn_bwd", "flash_attn_bwd_probe")
+    rc = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, "flash_attn_bwd_probe")
+    torch.cuda.synchronize()
+    return out, *(x[0, :, 0].float() for x in (qs, k, v, dout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", ["s_t", "dp_t", "dv", "dk", "dq_mn_major"])
+def test_fused_backward_probe_products_match_torch(bwd_probe, product):
+    """Each wgmma form of the fused backward alone: S^T = K Qs^T and
+    dP^T = V dO^T (K-major shared-memory operands), bf16(S^T) dO and
+    bf16(dP^T) Qs (A from registers, B MN-major), and T^T K with T the
+    128 x 64 stack of both, stored by the threads with the 128-byte swizzle
+    and read back as an MN-major A operand across 8 swizzle atoms."""
+    out, qs, k, v, dout = bwd_probe
+    bf = out.bfloat16().float()  # the kernel's own products, rounded as it rounds them
+    want = {"s_t": k[:64] @ qs.T, "dp_t": v[:64] @ dout.T, "dv": bf[0] @ dout,
+            "dk": bf[1] @ qs, "dq_mn_major": torch.cat([bf[0], bf[1]]).T @ k}[product]
+    got = out[["s_t", "dp_t", "dv", "dk", "dq_mn_major"].index(product)]
+    # bf16 products are exact in fp32; the sums run in another order
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 @pytest.mark.cuda
 def test_flash_attention_train_autograd_and_repeatable(gen):
-    """The autograd Function end to end (non-contiguous dO included) against
-    fp32 autograd through plain attention, and bit-equal across two runs."""
+    """The autograd Function end to end (non-contiguous dO included, ragged
+    S) against fp32 autograd through plain attention and against the bf16
+    plain version of the Function, one fused backward launch per backward,
+    and bit-equal across two runs."""
     from diffuman4d_torch.ops import flash_attention as fa
+    from diffuman4d_torch.ops import flash_backward as fb
     from diffuman4d_torch.ops.attention import dot_product_attention
 
     q, k, v, _ = _train_inputs(gen, 2, 150, 150, 3)
@@ -316,14 +388,19 @@ def test_flash_attention_train_autograd_and_repeatable(gen):
         (fn(*xs).float().permute(0, 2, 1, 3) * w).sum().backward()
         return [x.grad for x in xs]
 
+    before = fb.flash_bwd.launches
     got = grads(lambda *a: dot_product_attention(*a, implementation="train"), q, k, v)
+    assert fb.flash_bwd.launches == before + 1
     again = grads(lambda *a: dot_product_attention(*a, implementation="train"), q, k, v)
     want = grads(fa.attention_plain, q.float(), k.float(), v.float())
-    for g, g2, r in zip(got, again, want):
+    plain = grads(fb.flash_attention_train_plain, q, k, v)
+    for g, g2, r, p in zip(got, again, want, plain):
         assert torch.equal(g, g2)
         # bf16 kernel vs fp32 reference: bf16 resolution of the largest entry,
         # plus the bf16-rounded softmax scale of the base-2 form
         assert _row_rel_err(g, r) <= 2 ** -4
+        # vs the same Function's plain version: the same roundings
+        assert _row_rel_err(g, p) <= 2 ** -5
     with pytest.raises(ValueError):
         dot_product_attention(q.float(), k.float(), v.float(), implementation="train")
 

@@ -30,8 +30,8 @@ CSRC = cuda_build.CSRC
 LIBRARY_OF = {fn: lib for lib, fns in cuda_build.ENTRIES.items() for fn in fns}
 ALL_ENTRIES = [(lib, fn) for lib, fns in cuda_build.ENTRIES.items() for fn in fns]
 WRAPPERS = {**{f"fa.{n}": f for n, f in fa.KERNELS.items()},
-            "fb.flash_fwd_lse": fb.flash_fwd_lse, "fb.flash_bwd_dkdv": fb.flash_bwd_dkdv,
-            "fb.flash_bwd_dq": fb.flash_bwd_dq, "conv.conv3x3": conv.conv3x3}
+            "fb.flash_fwd_lse": fb.flash_fwd_lse, "fb.flash_bwd": fb.flash_bwd,
+            "conv.conv3x3": conv.conv3x3}
 
 
 def _string_constants(fn) -> set[str]:
@@ -133,7 +133,7 @@ def test_chip_smoke_kernel_records():
     B5 and B10 come from the Hopper file; B10's launches are read from the
     slice, the main path, before the tuner."""
     meta = _chip_smoke().KERNEL_META
-    assert len(meta) == 10
+    assert len(meta) == 9  # ten TPU kernels; B6 and B7 are one fused kernel
     for name, (source, replaces, *_rest, phases) in meta.items():
         assert (ROOT / source).is_file(), name
         path, line = replaces.split(" ")[0].split(":")
@@ -141,3 +141,33 @@ def test_chip_smoke_kernel_records():
     for name in ("flash_fwd_lse", "flash_fwd_two_level"):
         assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_hopper.cu"
     assert meta["flash_fwd_two_level"][-1] == ("slice", "tune")
+
+
+def test_chip_smoke_fused_backward_record_names_both_tpu_kernels():
+    """The one ``flash_bwd`` row stands for B6 and B7: its ``replaces``
+    names ``_dkdv_kernel`` and ``_dq_kernel`` at their lines, and its
+    launches are read from the train path."""
+    meta = _chip_smoke().KERNEL_META
+    assert not {"flash_bwd_dkdv", "flash_bwd_dq"} & set(meta)
+    source, replaces, key, _, phase = meta["flash_bwd"]
+    assert source == "diffuman4d_torch/csrc/flash_attn_bwd.cu" and key == "flash_bwd"
+    assert phase == "train"
+    path = ROOT / "diffuman4d_tpu" / "ops" / "flash_backward.py"
+    lines = path.read_text().splitlines()
+    for kernel in ("_dkdv_kernel", "_dq_kernel"):
+        m = re.search(r"flash_backward\.py:(\d+) \(" + kernel + r"\)", replaces)
+        assert m, (kernel, replaces)
+        assert lines[int(m.group(1)) - 1].startswith(f"def {kernel}("), kernel
+
+
+def test_fused_backward_block_sizes_match_the_wrapper():
+    """The wrapper sizes the per-query-block semaphores with BWD_BLOCK_Q: it
+    must be the kernel's BQ; the kernel is the one fused entry with five
+    products (no separate dQ or dK/dV entry is left)."""
+    src = (CSRC / "flash_attn_bwd.cu").read_text()
+    m = re.search(r"constexpr int BQ = (\d+);", src)
+    assert m and int(m.group(1)) == fb.BWD_BLOCK_Q
+    assert set(cuda_build.ENTRIES["flash_attn_bwd"]) == {"flash_attn_bwd_fused",
+                                                         "flash_attn_bwd_probe"}
+    assert "atomicAdd(sems, 1)" in src  # the tile counter: the only atomic
+    assert src.count("atomicAdd") == 1

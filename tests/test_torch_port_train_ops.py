@@ -106,7 +106,7 @@ def test_train_implementation_other_head_dims_take_plain_autograd_on_cpu():
 def test_flash_train_wrappers_take_plain_on_cpu_without_counting():
     from diffuman4d_torch.ops import flash_backward as fb
 
-    wrappers = (fb.flash_fwd_lse, fb.flash_bwd_dkdv, fb.flash_bwd_dq)
+    wrappers = (fb.flash_fwd_lse, fb.flash_bwd)
     before = [(f.launches, set(f.shapes)) for f in wrappers]
     q, k, v, w = (t(x) for x in _qkvw(4, 1, 20, 30, 2))
     qs = fb.scale_q(q)
@@ -116,12 +116,61 @@ def test_flash_train_wrappers_take_plain_on_cpu_without_counting():
     s2 = torch.einsum("bqhd,bkhd->bhqk", qs, k)
     torch.testing.assert_close(l2, torch.logsumexp(s2 * np.log(2.0), -1) / np.log(2.0))
     delta = fb.attention_delta(out, w)
-    for got, want in zip(fb.flash_bwd_dkdv(qs, k, v, w, l2, delta),
-                         fb.flash_bwd_dkdv_plain(qs, k, v, w, l2, delta)):
-        torch.testing.assert_close(got, want)
-    torch.testing.assert_close(fb.flash_bwd_dq(qs, k, v, w, l2, delta),
-                               fb.flash_bwd_dq_plain(qs, k, v, w, l2, delta))
+    got = fb.flash_bwd(qs, k, v, w, l2, delta)
+    assert [x.shape for x in got] == [qs.shape, k.shape, v.shape]
+    for g, want in zip(got, fb.flash_bwd_plain(qs, k, v, w, l2, delta)):
+        torch.testing.assert_close(g, want)
     assert [(f.launches, set(f.shapes)) for f in wrappers] == before
+
+
+def _bwd_inputs(seed, b, sq, sk, h, dtype=torch.float32):
+    """qs, k, v, dO and the forward's L2 and delta, as the backward gets them."""
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    q, k, v, w = (t(x).to(dtype) for x in _qkvw(seed, b, sq, sk, h, peak=2.0))
+    qs = fb.scale_q(q)
+    out, l2 = fb.flash_fwd_lse_plain(qs, k, v)
+    return qs, k, v, w, l2, fb.attention_delta(out, w)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,bq,bk", [(2, 128, 128, 2, 64, 64), (1, 256, 256, 3, 128, 64),
+                                             (2, 128, 192, 2, 64, 64), (1, 192, 64, 2, 64, 64)])
+def test_flash_bwd_plain_matches_jax_bwd_impl_fp32(b, sq, sk, h, bq, bk):
+    """The fused backward's plain version (dQ, dK, dV from the same Qs, dO,
+    L2 and delta) against both Pallas kernels of ``_bwd_impl`` in interpret
+    mode, fp32, at block sizes that tile S, Sq = Sk and Sq != Sk."""
+    from diffuman4d_tpu.ops.flash_backward import _bwd_impl
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    qs, k, v, w, l2, delta = _bwd_inputs(5, b, sq, sk, h)
+    got = fb.flash_bwd_plain(qs, k, v, w, l2, delta)
+
+    def heads(x):  # (B, S, H, D) -> (B H, S, D)
+        return jnp.asarray(n(x).transpose(0, 2, 1, 3).reshape(b * h, x.shape[1], 64))
+
+    def rows8(x):  # (B, H, Sq) -> (B H, 8, Sq), the kernels' row layout
+        return jnp.broadcast_to(jnp.asarray(n(x).reshape(b * h, 1, sq)), (b * h, 8, sq))
+
+    want = _bwd_impl(heads(qs), heads(k), heads(v), heads(w), rows8(l2), rows8(delta), bq, bk,
+                     1.0 / 8.0, True)
+    for g, wnt, name in zip(got, want, ("dq", "dk", "dv")):
+        wnt = n(wnt).reshape(b, h, -1, 64).transpose(0, 2, 1, 3)
+        assert g.shape == wnt.shape, name
+        # fp32 on both sides; only the summation order differs
+        np.testing.assert_allclose(n(g), wnt, atol=3e-4, rtol=3e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_plain_is_the_two_plain_functions_bit_for_bit(dtype):
+    """The fused plain version changes no rounding: it is the dK/dV and dQ
+    plain versions composed, bit for bit (bf16 included)."""
+    from diffuman4d_torch.ops import flash_backward as fb
+
+    args = _bwd_inputs(6, 2, 70, 90, 3, dtype)
+    dq, dk, dv = fb.flash_bwd_plain(*args)
+    dk_ref, dv_ref = fb.flash_bwd_dkdv_plain(*args)
+    for got, want in ((dq, fb.flash_bwd_dq_plain(*args)), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == dtype and torch.equal(got, want)
 
 
 # ------------------------------------------------------------- conv3x3 grads
