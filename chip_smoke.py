@@ -688,9 +688,10 @@ def phase_reference_train() -> dict:
 PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
     ("flash_bwd_fused_kernel|dq_convert_kernel", "flash attention backward, fused (csrc)"),
     ("flash_fwd_wgmma_kernel", "flash attention fwd, TMA + wgmma (csrc)"),
+    ("flash_fwd_d512_kernel", "flash attention d = 512, TMA + wgmma (csrc)"),
     ("flash_fwd_kernel", "flash attention (csrc)"),
     ("single_pass_kernel", "single-pass attention (csrc)"),
-    ("conv3x3_kernel", "fused conv3x3 (csrc)"),
+    ("conv3x3_wgmma_kernel", "fused conv3x3, TMA + wgmma (csrc)"),
     ("fprop|conv|implicit|winograd", "cuDNN conv"),
     ("gemm|nvjet|xmma|cutlass|sm90", "GEMM"),
     ("norm|reduce|softmax", "norm / reduction"),
@@ -1066,10 +1067,10 @@ KERNEL_META = {
     "flash_fwd_d64_frame": ("diffuman4d_torch/csrc/flash_attn.cu",
                             f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
                             ("slice", "tune")),
-    "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn.cu", f"{_FA}:54 (_flash_kernel)",
+    "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn_d512.cu", f"{_FA}:54 (_flash_kernel)",
                        "flash_fwd_d512", 0, "slice"),
-    "conv3x3": ("diffuman4d_torch/csrc/conv3x3.cu", "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)",
-                "conv3x3", 2, "slice"),
+    "conv3x3": ("diffuman4d_torch/csrc/conv3x3_hopper.cu",
+                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, "slice"),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
     "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",

@@ -1,18 +1,20 @@
-"""Time this tree's d = 64 attention kernels against another checkout's, in
-turns, on one card.
+"""Time this tree's attention and conv kernels against another checkout's,
+in turns, on one card.
 
-    python -m diffuman4d_torch.bench_attention_fwd --baseline DIR [--rows b1,bwd] [--out PATH]
+    python -m diffuman4d_torch.bench_attention_fwd --baseline DIR [--rows b1,b3,b4] [--out PATH]
 
 ``DIR`` is the root of another checkout of the repository (for example an
-unpacked ``git archive`` of the parent commit). Its attention sources under
+unpacked ``git archive`` of the parent commit). Its kernel sources under
 ``diffuman4d_torch/csrc`` (``flash_attn.cu``, ``flash_attn_hopper.cu``,
-``flash_attn_bwd.cu``, whichever it has) are compiled with this tree's
-``nvcc`` flags and loaded with ctypes; its C entries ``flash_attn_fwd``
-(B1), ``flash_attn_fwd_two_level`` (B10) and ``flash_attn_fwd_lse`` (B5)
-take the arguments that this tree's entries of the same names take, and its
-``flash_attn_bwd_dkdv`` + ``flash_attn_bwd_dq`` (B6 + B7, the backward before
-it was fused) those of :data:`BASELINE_BWD_ENTRIES`, so both run on the same
-tensors. For each shape the baseline and this tree are timed in the order
+``flash_attn_bwd.cu``, ``conv3x3.cu``, whichever it has) are compiled with
+this tree's ``nvcc`` flags and loaded with ctypes; its C entries
+``flash_attn_fwd`` (B1, and B3 at D = 512 before B3 had its own source),
+``flash_attn_fwd_two_level`` (B10), ``flash_attn_fwd_lse`` (B5) and
+``conv3x3_fwd`` (B4) take the arguments that this tree's entries of the
+same names take, and its ``flash_attn_bwd_dkdv`` + ``flash_attn_bwd_dq``
+(B6 + B7, the backward before it was fused) those of
+:data:`BASELINE_BWD_ENTRIES`, so both run on the same tensors. For each
+shape the baseline and this tree are timed in the order
 baseline, this tree, this tree, baseline (CUDA events around a few launches
 after a warm-up, the minimum of 3 windows each), and their outputs are
 compared. Rows (``--rows`` picks some; default all):
@@ -27,7 +29,13 @@ compared. Rows (``--rows`` picks some; default all):
   ``FWD_LSE_BLOCKS``), at the train step's heaviest attention shapes;
 * ``bwd``: the baseline's B6 + B7 (two launches) against this tree's fused
   backward (one launch) on the same Qs, K, V, dO, L2 and delta, at the same
-  train shapes, with the largest difference of dQ, dK and dV.
+  train shapes, with the largest difference of dQ, dK and dV;
+* ``b3``: the baseline's d = 512 attention (its ``flash_attn_fwd`` at
+  D = 512) against this tree's ``flash_attention_d512`` at the VAE mid
+  block's B2 S16,384 H1;
+* ``b4``: the baseline's fused conv against this tree's at the six
+  :data:`CONV_SHAPES` with the decoder's epilogue variants
+  (:data:`CONV_VARIANTS`), each with its largest output difference.
 
 Prints one line per timing and writes the whole result as JSON. Exits 2
 without a card.
@@ -51,7 +59,15 @@ TRAIN_SHAPES = [("train_3d@64sq", 1, 49152, 10), ("train_2d@128sq", 12, 16384, 5
                 ("train_3d@32sq", 1, 12288, 20), ("train_2d@64sq", 12, 4096, 10)]
 # the parent's table winner for B10 at the d = 64 shapes with S >= 4,096
 BASELINE_B10_BLOCKS = (192, 256, 64)
-ROWS = ("b1", "b10", "b5", "bwd")
+# (B, S, H) of the VAE mid-block attention at d = 512 (128^2 latents)
+B3_SHAPE = (2, 16384, 1)
+# (B, H, W, Cin, Cout) of the decoder's convs at 1024^2 images: chip_smoke.py's
+# CONV_SHAPES; and the epilogue variants (affine, silu, residual)
+CONV_SHAPES = [(2, 1024, 1024, 128, 128), (2, 512, 512, 256, 256), (2, 256, 256, 512, 512),
+               (2, 128, 128, 512, 512), (2, 1024, 1024, 256, 128), (2, 512, 512, 512, 256)]
+CONV_VARIANTS = {"plain": (False, False, False), "affine_silu": (True, True, False),
+                 "affine_silu_res": (True, True, True)}
+ROWS = ("b1", "b10", "b5", "bwd", "b3", "b4")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # the baseline's two backward entries (this tree has one fused entry instead)
 BASELINE_BWD_ENTRIES = {"flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR],
@@ -66,11 +82,11 @@ def _build_baseline(root: Path) -> dict:
 
     csrc = root / "diffuman4d_torch" / "csrc"
     headers = b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
-    types = {n: t for lib in ("flash_attn", "flash_attn_hopper")
+    types = {n: t for lib in ("flash_attn", "flash_attn_hopper", "conv3x3_hopper")
              for n, t in cuda_build.ENTRIES[lib].items()}
     types.update(BASELINE_BWD_ENTRIES)
     entries = {}
-    for name in ("flash_attn", "flash_attn_hopper", "flash_attn_bwd"):
+    for name in ("flash_attn", "flash_attn_hopper", "flash_attn_bwd", "conv3x3"):
         src = csrc / f"{name}.cu"
         if not src.is_file():
             continue
@@ -116,7 +132,7 @@ def _in_turns(base, new, n: int) -> dict:
 def run(baseline: Path, rows=ROWS) -> dict:
     import torch
 
-    from diffuman4d_torch.ops import cuda_build
+    from diffuman4d_torch.ops import conv, cuda_build
     from diffuman4d_torch.ops import flash_attention as fa
     from diffuman4d_torch.ops import flash_backward as fb
 
@@ -226,6 +242,58 @@ def run(baseline: Path, rows=ROWS) -> dict:
                   flush=True)
             del dout, out, l2, delta, dq_b, dk_b, dv_b, got
         del q, k, v, qs, ob, l2b
+        torch.cuda.empty_cache()
+
+    if "b3" in rows:
+        B, S, H = B3_SHAPE
+        q, k, v = (torch.randn((B, S, H, 512), generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        ob = torch.empty_like(q)
+        flops = 4.0 * B * H * S * S * 512
+
+        def b3_base():
+            call("flash_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), ob.data_ptr(),
+                 B, H, S, S, 512)
+
+        n = max(1, min(20, math.ceil(0.02 / (flops / 300e12))))
+        res["b3"] = r = _in_turns(b3_base, lambda: fa.flash_attention_d512(q, k, v), n)
+        b3_base()
+        got = fa.flash_attention_d512(q, k, v)
+        r["max_abs_diff"] = (got.float() - ob.float()).abs().max().item()
+        r["tflops"] = flops / (sum(r["this_ms"]) / 2) / 1e9
+        log(f"b3 B{B}xS{S}xH{H}xD512", r)
+        del q, k, v, ob, got
+        torch.cuda.empty_cache()
+
+    for B, H, W, cin, cout in CONV_SHAPES if "b4" in rows else ():
+        x = torch.randn((B, H, W, cin), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / math.sqrt(9 * cin)
+        wt = conv.tap_major_weights(w)
+        bias = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+        sc = 1 + 0.2 * torch.randn((B, cin), generator=gen, device="cuda")
+        sh = 0.2 * torch.randn((B, cin), generator=gen, device="cuda")
+        resid = torch.randn((B, H, W, cout), generator=gen, device="cuda").bfloat16()
+        ob = torch.empty((B, H, W, cout), device="cuda", dtype=torch.bfloat16)
+        flops = 2.0 * B * H * W * cout * 9 * cin
+        n = max(1, min(20, math.ceil(0.02 / (flops / 300e12))))
+        for variant, (affine, silu, has_res) in CONV_VARIANTS.items():
+            kw = {"silu": silu, **({"scale": sc, "shift": sh} if affine else {}),
+                  **({"residual": resid} if has_res else {})}
+
+            def b4_base():
+                call("conv3x3_fwd", x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                     sc.data_ptr() if affine else None, sh.data_ptr() if affine else None,
+                     resid.data_ptr() if has_res else None, ob.data_ptr(), B, H, W, cin, cout,
+                     int(silu))
+
+            name = f"B{B}x{H}x{W}x{cin}->{cout}:{variant}"
+            res["b4"][name] = r = _in_turns(b4_base, lambda: conv.conv3x3(x, w, bias, **kw), n)
+            b4_base()
+            got = conv.conv3x3(x, w, bias, **kw)
+            r["max_abs_diff"] = (got.float() - ob.float()).abs().max().item()
+            r["tflops"] = flops / (sum(r["this_ms"]) / 2) / 1e9
+            log(f"b4 {name}", r)
+        del x, w, wt, resid, ob, got
         torch.cuda.empty_cache()
     return res
 

@@ -96,22 +96,6 @@ struct Layout {
   static constexpr int SMEM = TILE_IDX_OFF + 16 + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
-// Barrier `id` over `n` threads (ids 1.. are free: 0 is __syncthreads).
-__device__ __forceinline__ void named_bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// Order this thread's shared-memory stores before later reads by the async
-// proxy (wgmma operands, bulk copies).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");

@@ -73,11 +73,6 @@ struct Layout {
   static constexpr int SMEM = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
 // S (64 x KIN) = Q (64 x 64) K_chunk^T: four 16-deep steps along d
 template <int KIN>
 __device__ __forceinline__ void qk(float (&s)[KIN / 2], uint64_t dq, uint64_t dk) {

@@ -54,8 +54,8 @@ log = logging.getLogger(__name__)
 TABLE_PATH = Path(__file__).resolve().parent / "attention_table.json"
 # the CUDA sources of the table's candidates (B1/B2/B3, B8/B9 and B10) and
 # the headers they include; the training kernels are not dispatched by it
-KERNEL_SOURCES = ("flash_attn.cu", "flash_attn_single.cu", "flash_attn_hopper.cu",
-                  "mma_common.cuh", "hopper_common.cuh")
+KERNEL_SOURCES = ("flash_attn.cu", "flash_attn_d512.cu", "flash_attn_single.cu",
+                  "flash_attn_hopper.cu", "mma_common.cuh", "hopper_common.cuh")
 DEFAULT_KERNEL = {64: "flash_d64", 512: "flash_d512"}
 
 _TABLE: list[dict] | None = None

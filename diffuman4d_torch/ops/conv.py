@@ -5,7 +5,7 @@ Counterpart of ``diffuman4d_tpu/ops/conv.py``: :func:`conv3x3` computes
 SAME zero padding applied after the prologue, NHWC, operands rounded to
 bf16, fp32 prologue / accumulation / bias, output in ``x``'s dtype. It
 replaces the Pallas kernel ``_conv_kernel`` (via ``conv3x3`` ->
-``_conv3x3_pallas``) with ``csrc/conv3x3.cu``. A CPU tensor takes
+``_conv3x3_pallas``) with ``csrc/conv3x3_hopper.cu``. A CPU tensor takes
 :func:`conv3x3_plain`; a CUDA tensor launches the kernel or raises,
 counts the launch in ``conv3x3.launches`` and, per shape and epilogue
 variant, in the counter ``conv3x3.shapes``.
@@ -71,6 +71,14 @@ def conv3x3_plain(x, w, bias, scale=None, shift=None, residual=None, *, silu=Fal
     return y.to(x.dtype)
 
 
+def tap_major_weights(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight layout: ``(Cout, 9, Cin)`` bf16, contiguous, tap
+    ``3 dy + dx`` for the input pixel at offset ``(dy - 1, dx - 1)``. Its
+    tensor map reads one tap's 128 output x 64 input channels per box."""
+    cout, cin = w.shape[:2]
+    return w.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(cout, 9, cin).contiguous()
+
+
 def conv3x3(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -102,7 +110,7 @@ def conv3x3(
         raise ValueError(f"conv3x3 kernel needs Cin, Cout % 8 == 0, got {cin}, {cout}")
     dev = x.device
     xb = x.to(torch.bfloat16).contiguous()
-    wt = w.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()  # (Cout, 3, 3, Cin)
+    wt = tap_major_weights(w)
     bias32 = bias.float().contiguous()
     sc = sh = None
     if scale is not None:
@@ -122,7 +130,7 @@ def conv3x3(
             raise ValueError("conv3x3: all tensors must be on one device")
         if t.data_ptr() % 16:
             raise ValueError("conv3x3: tensors must be 16-byte aligned")
-    fn = cuda_build.entry("conv3x3")
+    fn = cuda_build.entry("conv3x3_hopper", "conv3x3_fwd")
 
     def ptr(t):
         return None if t is None else t.data_ptr()

@@ -1,8 +1,8 @@
 """Flash attention on Hopper, with its plain PyTorch version beside it.
 
 Counterpart of ``diffuman4d_tpu/ops/flash_attention.py``. Five wrappers
-launch the kernels of ``csrc/flash_attn.cu``, ``csrc/flash_attn_single.cu``
-and ``csrc/flash_attn_hopper.cu``:
+launch the kernels of ``csrc/flash_attn.cu``, ``csrc/flash_attn_d512.cu``,
+``csrc/flash_attn_single.cu`` and ``csrc/flash_attn_hopper.cu``:
 
 * :func:`flash_attention_d64` replaces ``flash_attention_v4`` (the UNet's
   3D window attention) and ``flash_attention_v3`` (its per-frame
@@ -141,7 +141,8 @@ def flash_attention_d512(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     _check_shapes(q, k, v, 512)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _launch(flash_attention_d512, q, k, v, "flash_attn_fwd", (512,))
+    return _launch(flash_attention_d512, q, k, v, "flash_attn_fwd_d512", (),
+                   lib="flash_attn_d512")
 
 
 def flash_attention_single_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

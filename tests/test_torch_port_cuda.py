@@ -442,3 +442,68 @@ def test_conv3x3_rejects_unaligned_channels(gen):
     x = _randn(gen, 1, 8, 8, 12).bfloat16()
     with pytest.raises(ValueError):
         conv.conv3x3(x, _randn(gen, 8, 12, 3, 3), _randn(gen, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H", [(2, 150, 333, 1), (1, 100, 70, 2), (3, 65, 129, 1)])
+def test_flash_d512_ragged_cross_lengths_and_large_logits(gen, B, Sq, Sk, H):
+    """B3 with Sq != Sk, neither a multiple of its 64-key tile (a tile whose
+    second half of keys is all past Sk included), more than one head, and
+    one batch row of logits ~ N(0, 36): each batch row within 4 bf16 ulps of
+    its largest output. K and V are followed by NaN in memory."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q = _randn(gen, B, Sq, H, 512)
+    q[-1] *= 6.0
+    q = q.bfloat16()
+    kv = []
+    for _ in range(2):
+        x = _randn(gen, B, Sk, H, 512).bfloat16()
+        buf = torch.full((x.numel() + 65536,), float("nan"), device="cuda", dtype=torch.bfloat16)
+        buf[: x.numel()] = x.flatten()
+        kv.append(buf[: x.numel()].view(x.shape))
+    k, v = kv
+    got = fa.flash_attention_d512(q, k, v)
+    torch.cuda.synchronize()
+    assert (B, Sq, Sk, H) in fa.flash_attention_d512.shapes
+    assert torch.isfinite(got).all()
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(1, 37), (2, 37), (5, 70)])
+def test_conv3x3_padding_is_zero_after_the_prologue(gen, H, W):
+    """A shift of about 2 makes silu(shift) ~ 1.8, far from 0: a kernel that
+    transformed its zero padding instead of zeroing it after the prologue
+    would be off by O(1) at every edge pixel. W is not a multiple of the
+    kernel's 32-column tile, and H = 1, 2 leave most of its 4-row tile
+    outside the image."""
+    from diffuman4d_torch.ops import conv
+
+    B, cin, cout = 2, 64, 136
+    x = _randn(gen, B, H, W, cin).bfloat16()
+    w = _randn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    b = _randn(gen, cout, scale=0.1)
+    kw = dict(scale=1 + _randn(gen, B, cin, scale=0.1), shift=2 + _randn(gen, B, cin, scale=0.1),
+              silu=True, residual=_randn(gen, B, H, W, cout).bfloat16())
+    got = conv.conv3x3(x, w, b, **kw).float()
+    want = conv.conv3x3_plain(x, w, b, **kw).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 2 ** -6 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_vae_kernels_repeat_bit_for_bit(gen):
+    """B3 and B4 are deterministic: two launches on the same inputs give the
+    same bits (no atomics, sums in a fixed order)."""
+    from diffuman4d_torch.ops import conv
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q, k, v = (_randn(gen, 2, 300, 1, 512).bfloat16() for _ in range(3))
+    assert torch.equal(fa.flash_attention_d512(q, k, v), fa.flash_attention_d512(q, k, v))
+    x = _randn(gen, 2, 19, 45, 192).bfloat16()
+    w = _randn(gen, 256, 192, 3, 3, scale=(9 * 192) ** -0.5)
+    b = _randn(gen, 256, scale=0.1)
+    kw = dict(scale=1 + _randn(gen, 2, 192, scale=0.1), shift=_randn(gen, 2, 192, scale=0.1),
+              silu=True)
+    assert torch.equal(conv.conv3x3(x, w, b, **kw), conv.conv3x3(x, w, b, **kw))

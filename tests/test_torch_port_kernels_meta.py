@@ -171,3 +171,17 @@ def test_fused_backward_block_sizes_match_the_wrapper():
                                                          "flash_attn_bwd_probe"}
     assert "atomicAdd(sems, 1)" in src  # the tile counter: the only atomic
     assert src.count("atomicAdd") == 1
+
+
+def test_vae_kernels_come_from_their_hopper_sources():
+    """B3 and B4 launch the entries of their Hopper sources, which
+    ``chip_smoke.py``'s records name; ``flash_attn.cu`` keeps only the
+    d = 64 kernel (B1/B2)."""
+    meta = _chip_smoke().KERNEL_META
+    assert meta["flash_fwd_d512"][0] == "diffuman4d_torch/csrc/flash_attn_d512.cu"
+    assert meta["conv3x3"][0] == "diffuman4d_torch/csrc/conv3x3_hopper.cu"
+    assert _launched(fa.flash_attention_d512) == ("flash_attn_d512", "flash_attn_fwd_d512")
+    assert _launched(conv.conv3x3) == ("conv3x3_hopper", "conv3x3_fwd")
+    src = (CSRC / "flash_attn.cu").read_text()
+    assert "launch<512" not in src and "launch<64, 64, 2>" in src
+    assert not (CSRC / "conv3x3.cu").exists()
