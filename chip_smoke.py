@@ -37,6 +37,20 @@ Phases:
    read just after: every launch must be the one the table routes its shape
    to, every kernel the table routes the slice's attention shapes to must
    have run, and so must the fused conv.
+3b. ``cli``: production demo_3d through the port's own CLI
+   (``diffuman4d_torch.cli.main``, in this process): the random bf16 models
+   are written as a diffusers directory (``io/checkpoints.py``
+   ``save_hf_checkpoint``) under ``build/smoke/model``, a synthetic
+   48-camera, one-frame scene at 1024^2 is made, and ``exp=demo_3d``
+   (inputs [1, 13, 25, 37], window 12, stride 1, one round, DDIM, CFG 2.0,
+   bf16) runs from that directory with ``evaluating=true``: sampling,
+   nerfstudio export, metrics. Launch counters and shape records are zeroed
+   just before the call and read just after. It must return 0 and write 48
+   JPEGs, ``transforms.json`` with 48 frames, ``transforms_input.json``
+   with 4 and ``metrics.json`` with 44 values and a finite mean PSNR; the
+   loaded weights must equal the saved ones bit for bit; the task must run
+   44 windows; B10, B3 and B4 must have launched, every attention launch on
+   the kernel the table routes its shape to.
 4. ``train``: three optimiser steps of the full-width UNet (0.87 B
    parameters, fp32 masters, bf16 compute, per-block remat, AdamW) on one
    window batch of the synthetic scene through ``WindowBatcher`` +
@@ -81,7 +95,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "tune", "reference", "slice", "train", "kernels")
+PHASES = ("build", "tune", "reference", "slice", "cli", "train", "kernels")
 EXTRA_PHASES = ("profile",)  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -95,8 +109,12 @@ ATTN64_SHAPES = [
     (2, 4096, 20),  # 3D, 16^2 mid block
 ]
 # the slice's attention shapes at head dim 64: the above and the per-frame
-# 16^2 mid block
+# 16^2 mid block (a window of 12 targets and 4 inputs in the slice and in
+# production demo_3d alike)
 SLICE_ATTN64_SHAPES = ATTN64_SHAPES + [(32, 256, 20)]
+# production demo_3d (the JAX package's exp=demo_3d preset): 48 cameras,
+# 4 of them inputs, so 44 targets, 44 windows at stride 1
+CLI_CAMERAS, CLI_INPUTS = 48, 4
 ATTN512_SHAPES = [(2, 16384, 1)]  # VAE mid block at 128^2 latents
 # hot shapes of the tuner timed by the tune phase: the per-frame 16^2, 32^2
 # and 64^2 attention, the 3D 16^2 mid block and, where the two-level kernel
@@ -510,7 +528,7 @@ def _ordered(fixed: list, launched) -> list:
 def phase_kernels(launched: dict) -> dict:
     """Every kernel against its plain version at the fixed shapes and at
     each shape in ``launched`` (the wrappers' ``shapes`` records of the
-    slice)."""
+    slice and cli paths)."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False  # the plain conv runs in full fp32
@@ -708,7 +726,8 @@ def phase_profile(unet, vae, out_dir: Path) -> dict:
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from diffuman4d_torch.utils.tracing import trace_to
 
     out_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -744,7 +763,7 @@ def phase_profile(unet, vae, out_dir: Path) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace_to(str(out_dir / f"trace_{name}")) as prof:
             fn()
             torch.cuda.synchronize()
         groups: dict[str, float] = {}
@@ -1019,6 +1038,111 @@ def phase_slice(unet, vae, work: Path) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _patched(obj, name: str, make):
+    """Replace ``obj.name`` by ``make(original)`` for the block."""
+    original = getattr(obj, name)
+    setattr(obj, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(obj, name, original)
+
+
+def phase_cli(unet, vae, work: Path) -> dict:
+    """Production demo_3d from a diffusers directory through the port's CLI."""
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.data import make_synthetic_scene
+    from diffuman4d_torch.io.checkpoints import save_hf_checkpoint
+    from diffuman4d_torch.ops import conv, flash_attention as fa
+    from diffuman4d_torch.sampling import loader, pipeline as pp
+
+    model_dir, data_dir, out = work / "model", work / "data48", work / "cli_out"
+    t0 = time.perf_counter()
+    save_hf_checkpoint(str(model_dir), unet, vae)
+    write_s = time.perf_counter() - t0
+    ckpt_gb = sum(f.stat().st_size for f in model_dir.rglob("*") if f.is_file()) / 1e9
+    t0 = time.perf_counter()
+    make_synthetic_scene(str(data_dir), "scene0", num_cams=CLI_CAMERAS, num_frames=1,
+                         image_size=1024)
+    scene_s = time.perf_counter() - t0
+
+    loaded, windows = {}, []
+
+    def recording_load(load):
+        def run(*a, **k):
+            loaded["pipe"] = load(*a, **k)
+            return loaded["pipe"]
+        return run
+
+    def counting_denoise(denoise):
+        def run(self, cond, latents, t_idx, task_windows, domain):
+            windows.append(len(task_windows))
+            return denoise(self, cond, latents, t_idx, task_windows, domain)
+        return run
+
+    wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
+    argv = ["exp=demo_3d", f"data.data_dir={data_dir}", "data.scene_label=scene0",
+            f"model.model_dir={model_dir}", f"sampler.output_dir={out}", "evaluating=true"]
+    with _patched(loader, "load_pipeline", recording_load), \
+            _patched(pp.Diffuman4DPipeline, "sliding_denoise", counting_denoise):
+        torch.cuda.reset_peak_memory_stats()
+        _reset(wrappers.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    shapes = {name: sorted(fn.shapes) for name, fn in wrappers.items()}
+    launches.update(_d64_split(fa.flash_attention_d64.shapes))
+    routed = _check_routes(fa.KERNELS, [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    pipe = loaded.pop("pipe")
+    unequal = []
+    for tag, saved, got in (("unet", unet, pipe.unet), ("vae", vae, pipe.vae)):
+        got = got.state_dict()
+        unequal += [f"{tag}.{k}" for k, v in saved.state_dict().items()
+                    if not torch.equal(v, got[k])]
+    del pipe
+    shutil.rmtree(model_dir)  # 3.8 GB of fp32 weights
+    torch.cuda.empty_cache()
+    jpgs = sorted((out / "images").rglob("*.jpg"))
+    tfs = json.loads((out / "transforms.json").read_text())
+    tfs_in = json.loads((out / "transforms_input.json").read_text())
+    metrics = json.loads((out / "metrics.json").read_text())
+    phases = json.loads((out / "phases.json").read_text())
+    res = {"rc": rc, "cli_s": cli_s, "ckpt_write_s": write_s, "ckpt_gb": ckpt_gb,
+           "scene_s": scene_s,
+           **{f"{k.split('/')[-1]}_s": v["total_s"] for k, v in phases.items()},
+           "phases": phases, "peak_gb": peak_gb, "launches": launches, "shapes": shapes,
+           "routed": routed, "windows": sum(windows), "tasks": len(windows), "jpgs": len(jpgs),
+           "frames": len(tfs["frames"]), "input_frames": len(tfs_in["frames"]),
+           "metrics_mean": metrics["mean"], "metrics_values": len(metrics["values"]),
+           "weights_unequal": unequal[:8]}
+    log(f"cli: {json.dumps(res)}")
+    log(f"cli: checkpoint write {write_s:.2f} s ({ckpt_gb:.2f} GB), load "
+        f"{res.get('load_pipeline_s')} s, sampling {res.get('sampling_s')} s (phases.json: "
+        + ", ".join(f"{k} {v['total_s']} s" for k, v in phases.items() if k.startswith("task/"))
+        + f"), export {res.get('to_nerfstudio_s')} s, evaluate {res.get('evaluate_s')} s, "
+        f"peak {peak_gb:.2f} GB, launches {launches}")
+    want = {"rc": 0, "jpgs": CLI_CAMERAS, "frames": CLI_CAMERAS, "input_frames": CLI_INPUTS,
+            "metrics_values": CLI_CAMERAS - CLI_INPUTS, "windows": CLI_CAMERAS - CLI_INPUTS,
+            "tasks": 1, "weights_unequal": []}
+    if wrong := {k: (res[k], v) for k, v in want.items() if res[k] != v}:
+        raise AssertionError(f"cli: (got, expected) {wrong}")
+    if not math.isfinite(metrics["mean"]["psnr"]):
+        raise AssertionError(f"cli: mean PSNR {metrics['mean']}")
+    for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
+        if not launches[name]:
+            raise AssertionError(f"cli: {name} never launched: {launches}")
+    return res
+
+
 def _d64_split(shapes) -> dict:
     """The d = 64 kernel serves two TPU kernels: 3D window attention (the
     CFG pair as batch 2) and per-frame attention (batch 2 L)."""
@@ -1059,7 +1183,8 @@ _FB = "diffuman4d_tpu/ops/flash_backward.py"
 # name -> (source, the TPU kernel it replaces, results key of its checks,
 # index of its headline check, phases whose runs count its launches: the
 # first in which it launched; B1/B2 and B10 run on the slice where the table
-# routes a shape to them and on the tune path as candidates)
+# routes a shape to them and on the tune path as candidates, B10 on the CLI
+# path too; the table routes no shape of the CLI path to B1/B2)
 KERNEL_META = {
     "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn.cu",
                              f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0,
@@ -1068,9 +1193,9 @@ KERNEL_META = {
                             f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
                             ("slice", "tune")),
     "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn_d512.cu", f"{_FA}:54 (_flash_kernel)",
-                       "flash_fwd_d512", 0, "slice"),
+                       "flash_fwd_d512", 0, ("cli", "slice")),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3_hopper.cu",
-                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, "slice"),
+                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, ("cli", "slice")),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
     "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",
@@ -1084,7 +1209,7 @@ KERNEL_META = {
                                       "flash_fwd_single_pass_batched", 0, "tune"),
     "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn_hopper.cu",
                             f"{_FA}:96 (_flash_kernel_v2)", "flash_fwd_two_level", 0,
-                            ("slice", "tune")),
+                            ("cli", "slice", "tune")),
 }
 
 
@@ -1137,7 +1262,7 @@ def main() -> int:
     if "reference" in phases:
         run("reference_train", phase_reference_train)
         torch.cuda.empty_cache()
-    if {"reference", "slice", "train", "profile"} & set(phases):
+    if {"reference", "slice", "cli", "train", "profile"} & set(phases):
         from diffuman4d_torch.sampling.loader import build_models
 
         unet, vae = build_models(device="cuda", dtype=torch.bfloat16, seed=0)
@@ -1145,6 +1270,10 @@ def main() -> int:
             run("reference", phase_reference, unet, vae)
         if "slice" in phases:
             run("slice", phase_slice, unet, vae, work)
+            torch.cuda.empty_cache()
+        if "cli" in phases:
+            run("cli", phase_cli, unet, vae, work)
+            torch.cuda.empty_cache()
         if "train" in phases:  # moves the UNet's weights and puts them back
             run("train", phase_train, unet, vae, work)
         if "profile" in phases:
@@ -1153,7 +1282,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
-        for phase in ("tune", "slice", "train"):
+        for phase in ("tune", "slice", "cli", "train"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

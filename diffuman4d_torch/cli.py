@@ -1,0 +1,147 @@
+"""CLI entry point of the port (counterpart of ``diffuman4d_tpu/cli.py``;
+reference: inference.py:18-47).
+
+Usage mirrors the JAX package's, so one command line drives both:
+
+    python -m diffuman4d_torch.cli exp=demo_3d data.scene_label=0023_06 \
+        data.data_dir=./data/dna_rendering model.model_dir=./models/diffuman4d
+
+Flags ``sampling`` / ``to_nerfstudio`` / ``evaluating`` select the stages
+(configs/test.yaml:18-20). ``device=cuda|cpu`` (default ``cuda``) takes the
+place of the JAX CLI's ``platform=``: without a card the CLI refuses to run
+unless ``device=cpu`` is given. The output directory receives
+``config_tree.log``, ``job.log``, ``images/{cam}/{frame}.jpg``,
+``phases.json``, the nerfstudio export (``transforms.json``,
+``transforms_input.json``, ``export_manifest.json``, ``fmasks/``,
+``images_alpha/``) and, with ``evaluating=true``, ``metrics.json``. The JAX
+CLI's grid state (``state/grid_state.d4d``) is not written yet
+(``ROADMAP.md`` A.3.b).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import os.path as osp
+import sys
+import time
+
+from diffuman4d_torch.configs.presets import RunConfig, build_config, config_tree
+
+log = logging.getLogger("diffuman4d_torch")
+
+_FORMAT = "[%(asctime)s][%(name)s][%(levelname)s] %(message)s"
+
+
+def _refuse_unported(cfg: RunConfig) -> None:
+    """Options of the JAX CLI the port does not have yet raise, naming the
+    ROADMAP item; none is ignored."""
+    s = cfg.sampler
+    if s.save_debug_grids:
+        raise NotImplementedError("sampler.save_debug_grids=true is not ported yet "
+                                  "(ROADMAP.md A.3.e)")
+    if s.tasks_per_wave:
+        raise NotImplementedError("sampler.tasks_per_wave: task waves are not ported yet "
+                                  "(ROADMAP.md A.7); the port runs tasks one at a time")
+    if unknown := set(s.split_cfg_domains or ()) - {"spatial", "temporal"}:
+        raise NotImplementedError(f"sampler.split_cfg_domains {sorted(unknown)}: the port "
+                                  f"splits CFG in the 'spatial' and 'temporal' domains only")
+    for state in ("grid_state.d4d", "grid_state.npz"):
+        path = osp.join(s.output_dir, "state", state)
+        if osp.isfile(path):
+            raise NotImplementedError(f"{path}: resuming from a grid state is not ported yet "
+                                      f"(ROADMAP.md A.3.b); use another sampler.output_dir")
+
+
+def main(argv: list[str] | None = None) -> int:
+    logging.basicConfig(level=logging.INFO, format=_FORMAT)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    devices = [a.split("=", 1)[1] for a in argv if a.startswith("device=")]
+    argv = [a for a in argv if not a.startswith("device=")]
+
+    import torch
+
+    device = torch.device(devices[-1] if devices else "cuda")
+    if device.type not in ("cuda", "cpu"):
+        print(f"device={device}: cuda or cpu", file=sys.stderr)
+        return 2
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device: the port runs on the card; pass device=cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+    cfg = build_config(argv)
+    _refuse_unported(cfg)
+    print(config_tree(cfg))
+
+    os.makedirs(cfg.sampler.output_dir, exist_ok=True)
+    with open(osp.join(cfg.sampler.output_dir, "config_tree.log"), "w") as f:
+        f.write(config_tree(cfg))
+    # per-run job.log (reference: hydra colorlog job.log)
+    fh = logging.FileHandler(osp.join(cfg.sampler.output_dir, "job.log"))
+    fh.setFormatter(logging.Formatter(_FORMAT))
+    logging.getLogger().addHandler(fh)
+    try:
+        _run(cfg, device)
+    finally:
+        logging.getLogger().removeHandler(fh)
+        fh.close()
+    return 0
+
+
+def _run(cfg: RunConfig, device) -> None:
+    from diffuman4d_torch.data.dataset import SpaTemDataset
+    from diffuman4d_torch.sampling.loader import load_pipeline
+    from diffuman4d_torch.sampling.runner import SamplingRunner
+    from diffuman4d_torch.sampling.sampler import SlidingIterativeSampler
+    from diffuman4d_torch.utils.tracing import phase, report
+
+    report(reset=True)  # phases.json holds this run only
+    dataset = SpaTemDataset(
+        data_dir=cfg.data.data_dir,
+        camera_path_pat=cfg.data.camera_path_pat,
+        image_path_pat=cfg.data.image_path_pat,
+        fmask_path_pat=cfg.data.fmask_path_pat,
+        skeleton_path_pat=cfg.data.skeleton_path_pat,
+        scene_label=cfg.data.scene_label,
+        height=cfg.data.height,
+        width=cfg.data.width,
+        has_gt_target=cfg.data.has_gt_target,
+        # generation reads skeletons as uint8 (pipeline._skel_u8)
+        skeletons_uint8=True,
+    )
+    with phase("cli/load_pipeline"):
+        pipeline = load_pipeline(cfg.model, cfg.sampler, cfg.data, device=device)
+    sampler = SlidingIterativeSampler(
+        dataset,
+        pipeline,
+        output_dir=cfg.sampler.output_dir,
+        spa_label_range=cfg.sampler.spa_label_range,
+        tem_label_range=cfg.sampler.tem_label_range,
+        spa_labels=cfg.sampler.spa_labels,
+        tem_labels=cfg.sampler.tem_labels,
+        input_spa_labels=cfg.sampler.input_spa_labels,
+        seed=cfg.sampler.seed,
+    )
+    runner = SamplingRunner(sampler)
+
+    if cfg.sampling:
+        t0 = time.time()
+        with phase("cli/sampling"):
+            runner.inference()
+        log.info("sampling finished in %.1fs", time.time() - t0)
+
+    scene_dir = osp.join(osp.expandvars(cfg.data.data_dir), cfg.data.scene_label)
+    if cfg.to_nerfstudio:
+        with phase("cli/to_nerfstudio"):
+            runner.to_nerfstudio(scene_dir)
+
+    if cfg.evaluating:
+        with phase("cli/evaluate"):
+            metrics = runner.evaluate(data_dir=osp.expandvars(cfg.data.data_dir),
+                                      scene_label=cfg.data.scene_label)
+        log.info("metrics mean: %s", metrics["mean"])
+    runner._dump_phases()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

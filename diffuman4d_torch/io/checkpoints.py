@@ -1,20 +1,37 @@
-"""The weight carry: the JAX package's flax params, as numpy arrays, ->
-the port's state dicts with diffusers key names.
+"""Weights in the port's state dicts (diffusers key names): the carry of
+the JAX package's flax params, and diffusers checkpoint directories.
 
-Numpy only. It restates ``export_unet_torch_keys`` / ``export_vae_torch_keys``
-of ``diffuman4d_tpu/io/checkpoints.py`` (which cannot be imported here: that
+The carry (:func:`state_dicts_from_flax`) is numpy only. It restates
+``export_unet_torch_keys`` / ``export_vae_torch_keys`` of
+``diffuman4d_tpu/io/checkpoints.py`` (which cannot be imported here: that
 module imports ``jax.numpy`` and the flax models). Conv kernels go from flax
 HWIO to PyTorch OIHW, dense kernels from (in, out) to (out, in), norm scales
 become ``weight``. The mapping is linear (renames, transposes), so a flax
 gradient tree and optax's Adam moments go through it unchanged
 (:func:`grads_from_flax`, :func:`adam_state_from_flax`) and can be compared
 with the port's key by key.
+
+A diffusers directory (``unet/``, ``vae/``, ``scheduler/``, each with its
+``config.json`` and ``diffusion_pytorch_model.safetensors``) is written by
+:func:`save_hf_checkpoint` and read by :func:`load_hf_checkpoint`, the
+counterparts of the JAX package's functions of the same names: a directory
+either package writes loads in the other. The safetensors files are read
+and written with numpy (:func:`read_safetensors`, :func:`write_safetensors`),
+without the ``safetensors`` package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import os.path as osp
+
 import numpy as np
 import torch
+
+from diffuman4d_torch.models.unet import UNetConfig
+from diffuman4d_torch.models.vae import VAEConfig
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -192,3 +209,149 @@ def load_numpy_state_dict(module: torch.nn.Module, state: dict[str, np.ndarray])
             if tuple(src.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: shape {src.shape} != {tuple(param.shape)}")
             param.copy_(torch.from_numpy(src).to(param.dtype))
+
+
+# -------------------------------------------------------------- safetensors
+# The format: an 8-byte little-endian header length, a JSON header that maps
+# each tensor's name to its dtype, shape and [begin, end) byte offsets into
+# the data that follows, then the raw little-endian bytes.
+_HEADER_MAX = 100 << 20
+
+
+def read_safetensors(path: str) -> dict[str, np.ndarray]:
+    """Every tensor of a safetensors file as an fp32 numpy array (F32, F16
+    and BF16 are read; BF16 widens exactly)."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        if not 0 < n <= _HEADER_MAX:
+            raise ValueError(f"{path}: not a safetensors file (header length {n})")
+        header = json.loads(f.read(n))
+        data = np.fromfile(f, dtype=np.uint8)
+    header.pop("__metadata__", None)
+    out = {}
+    for name, meta in header.items():
+        begin, end = meta["data_offsets"]
+        if not 0 <= begin <= end <= data.size:
+            raise ValueError(f"{path}: {name} lies outside the file")
+        raw, kind = data[begin:end], meta["dtype"]
+        if kind == "F32":
+            arr = np.require(raw.view("<f4"), requirements="A")
+        elif kind == "F16":
+            arr = raw.view("<f2").astype(np.float32)
+        elif kind == "BF16":
+            arr = (raw.view("<u2").astype(np.uint32) << 16).view(np.float32)
+        else:
+            raise ValueError(f"{path}: {name} has dtype {kind}; F32, F16 and BF16 are read")
+        out[name] = arr.reshape(meta["shape"])
+    return out
+
+
+def write_safetensors(path: str, tensors: dict[str, np.ndarray]) -> None:
+    """Write ``tensors`` as F32, in name order."""
+    arrays = {k: np.ascontiguousarray(v, "<f4") for k, v in sorted(tensors.items())}
+    header, offset = {}, 0
+    for name, arr in arrays.items():
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for arr in arrays.values():
+            arr.tofile(f)
+
+
+# ------------------------------------------------------ diffusers directories
+_WEIGHTS = ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.fp16.safetensors")
+
+
+def _numpy_state(module: torch.nn.Module) -> dict[str, np.ndarray]:
+    return {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
+
+
+def save_hf_checkpoint(model_dir: str, unet: torch.nn.Module, vae: torch.nn.Module) -> str:
+    """Write a diffusers-layout checkpoint directory of the port's UNet and
+    VAE (weights as F32, whatever the modules' dtype) and a DDIM scheduler
+    config, which both this package and the JAX package load."""
+    for sub in ("unet", "vae", "scheduler"):
+        os.makedirs(osp.join(model_dir, sub), exist_ok=True)
+    write_safetensors(osp.join(model_dir, "unet", _WEIGHTS[0]), _numpy_state(unet))
+    write_safetensors(osp.join(model_dir, "vae", _WEIGHTS[0]), _numpy_state(vae))
+
+    ucfg = dataclasses.asdict(unet.config)
+    ucfg["_class_name"] = "UNetMultiviewConditionModel"
+    # diffusers' naming bug: its attention_head_dim is the per-stage head count
+    ucfg["attention_head_dim"] = list(ucfg.pop("num_attention_heads"))
+    vcfg = dataclasses.asdict(vae.config)
+    vcfg["_class_name"] = "AutoencoderKL"
+    for sub, name, cfg in (("unet", "config.json", ucfg), ("vae", "config.json", vcfg),
+                           ("scheduler", "scheduler_config.json",
+                            {"_class_name": "DDIMScheduler"})):
+        with open(osp.join(model_dir, sub, name), "w") as f:
+            json.dump(cfg, f, indent=2)
+    return model_dir
+
+
+def unet_config_from_hf(cfg: dict) -> UNetConfig:
+    """diffusers ``config.json`` -> UNetConfig (diffusers naming-bug note:
+    ``attention_head_dim`` there is the per-stage head *count*)."""
+    heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", 8)
+    if isinstance(heads, int):
+        heads = (heads,) * len(cfg.get("block_out_channels", (320, 640, 1280, 1280)))
+    return UNetConfig(
+        in_channels=cfg.get("in_channels", 4),
+        out_channels=cfg.get("out_channels", 4),
+        block_out_channels=tuple(cfg.get("block_out_channels", (320, 640, 1280, 1280))),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        num_attention_heads=tuple(heads),
+        transformer_layers_per_block=cfg.get("transformer_layers_per_block", 1),
+        use_linear_projection=cfg.get("use_linear_projection", False),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        norm_eps=cfg.get("norm_eps", 1e-5),
+        freq_shift=cfg.get("freq_shift", 0),
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+        num_3d_attn_blocks=cfg.get("num_3d_attn_blocks", 3),
+        enable_tem_embeds=cfg.get("enable_tem_embeds", False),
+        enable_pose_encoder=cfg.get("enable_pose_encoder", False),
+    )
+
+
+def vae_config_from_hf(cfg: dict) -> VAEConfig:
+    return VAEConfig(
+        in_channels=cfg.get("in_channels", 3),
+        out_channels=cfg.get("out_channels", 3),
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        scaling_factor=cfg.get("scaling_factor", 0.18215),
+    )
+
+
+def load_hf_checkpoint(model_dir: str, dtype: torch.dtype = torch.bfloat16):
+    """Read a diffusers-layout checkpoint directory.
+
+    ``dtype`` is the storage dtype of the weights, as in the JAX package
+    (bf16 by default, the reference's ``from_pretrained``): every weight is
+    rounded to it here. The caller holds them at the compute dtype, which
+    gives the numbers flax's cast at use gives.
+
+    Returns ``(unet_config, vae_config, scheduler_config, unet_state,
+    vae_state)``; the states map diffusers names to CPU tensors of
+    ``dtype``."""
+    def read_json(*parts):
+        with open(osp.join(model_dir, *parts)) as f:
+            return json.load(f)
+
+    def weights(sub):
+        for name in _WEIGHTS:
+            path = osp.join(model_dir, sub, name)
+            if osp.isfile(path):
+                return {k: torch.from_numpy(v).to(dtype) for k, v in read_safetensors(path).items()}
+        raise FileNotFoundError(f"no safetensors found under {model_dir}/{sub}")
+
+    return (unet_config_from_hf(read_json("unet", "config.json")),
+            vae_config_from_hf(read_json("vae", "config.json")),
+            read_json("scheduler", "scheduler_config.json"),
+            weights("unet"), weights("vae"))

@@ -4,8 +4,10 @@
 Owns the camera x frame latent grid -- one device tensor (S, T, h, w, 4)
 plus an int32 (S, T) timestep-index grid on the host -- and runs the
 alternation rounds' tasks one after another. Initial noise is seeded per
-grid cell, so results do not depend on task order. Task waves over several
-devices, grid-state resume and run budgets are not ported yet.
+grid cell, so results do not depend on task order. Each task's stages are
+timed as ``task/*`` phases (``utils/tracing.py``). Task waves over several
+devices (``ROADMAP.md`` A.7), grid-state resume and run budgets (A.3.b) and
+debug grids (A.3.e) are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from diffuman4d_torch.sampling.outputs import check_sampling_results, save_final
 from diffuman4d_torch.sampling.windows import build_windows
 from diffuman4d_torch.data import Sample, SpaTemDataset
 from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+from diffuman4d_torch.utils.tracing import phase
 
 
 @dataclass
@@ -128,19 +131,24 @@ class SlidingIterativeSampler:
 
     def execute_one_task(self, task: Task, sample: Sample | None = None) -> None:
         if sample is None:
-            sample = self.load_sample(task)
+            with phase("task/load_sample"):
+                sample = self.load_sample(task)
         spa, tem = self._grid_cells(sample.labels)
-        cond = self.pipeline.prepare_conditions(sample)
+        with phase("task/prepare_conditions"):
+            cond = self.pipeline.prepare_conditions(sample)
         dev = self.grid_latents.device
         spa_t = torch.from_numpy(spa).to(dev)
         tem_t = torch.from_numpy(tem).to(dev)
         latents = self.grid_latents[spa_t, tem_t]
         t_idx = self.grid_t_idx[spa, tem]
         windows = self._windows_for(task, len(sample.labels))
-        latents, t_idx = self.pipeline.sliding_denoise(cond, latents, t_idx, windows, task.domain)
+        with phase("task/sliding_denoise"):
+            latents, t_idx = self.pipeline.sliding_denoise(cond, latents, t_idx, windows,
+                                                           task.domain)
         self.grid_latents[spa_t, tem_t] = latents
         self.grid_t_idx[spa, tem] = t_idx
-        self._save_task_outputs(sample, latents, t_idx)
+        with phase("task/decode_save"):
+            self._save_task_outputs(sample, latents, t_idx)
 
     def _save_task_outputs(self, sample: Sample, latents: torch.Tensor, t_idx: np.ndarray) -> None:
         """Decode and write the fully denoised rows; input rows are written

@@ -10,6 +10,7 @@ casts back.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +34,24 @@ class SchedulerConfig:
     set_alpha_to_one: bool = False
     ddim_eta: float = 0.0
     variance_type: str = "fixed_small"
+
+
+def from_config(cfg: dict) -> "Scheduler":
+    """Build from a diffusers ``scheduler_config.json`` dict (the JAX
+    package's ``from_config``): the class name picks the kind, the keys
+    that are ``SchedulerConfig`` fields are taken, others dropped. Only a
+    DDIM config builds; the other kinds raise in :class:`Scheduler`."""
+    class_name = cfg.get("_class_name", "DDIMScheduler")
+    kind = {
+        "DDIMScheduler": "ddim",
+        "DDPMScheduler": "ddpm",
+        "EulerDiscreteScheduler": "euler",
+        "DPMSolverMultistepScheduler": "dpm++",
+    }.get(class_name)
+    if kind is None:
+        raise NotImplementedError(f"Scheduler {class_name} not supported")
+    fields = {f.name for f in dataclasses.fields(SchedulerConfig)}
+    return Scheduler(SchedulerConfig(kind=kind, **{k: v for k, v in cfg.items() if k in fields}))
 
 
 def _make_betas(cfg: SchedulerConfig) -> np.ndarray:
@@ -83,7 +102,8 @@ class Scheduler:
 
     def __init__(self, config: SchedulerConfig, device: torch.device | str = "cpu"):
         if config.kind != "ddim":
-            raise NotImplementedError(f"scheduler kind {config.kind!r} is not ported yet (ddim is)")
+            raise NotImplementedError(f"scheduler kind {config.kind!r} is not ported yet (ddim is; "
+                                      f"ROADMAP A.4)")
         self.config = config
         self.device = torch.device(device)
         alphas_cumprod = np.cumprod(1.0 - _make_betas(config))

@@ -14,10 +14,12 @@ so a resumed run repeats an uninterrupted one exactly.
 Usage::
 
     python -m diffuman4d_torch.training.loop data_dir=<scene tree> \\
-        scene_label=<scene> steps=1000 batch_size=2
+        scene_label=<scene> steps=1000 batch_size=2 [model_dir=<diffusers dir>]
 
-Weights are random from ``seed`` (loading a checkpoint directory is not
-ported yet); the run is on ``cuda`` unless ``device=cpu`` is given.
+The model comes from ``sampling/loader.py::load_pipeline``, as in the JAX
+package: a diffusers-layout ``model_dir`` (default ``./models/diffuman4d``)
+is loaded; without one the weights are random from ``seed`` at ``arch=full``
+or ``arch=tiny``. The run is on ``cuda`` unless ``device=cpu`` is given.
 """
 
 from __future__ import annotations
@@ -193,29 +195,31 @@ def _restore_state(path: str, state: TrainState, host_ema: HostEMA | None, devic
 def main(argv=None) -> int:
     import sys
 
+    from diffuman4d_torch.configs.presets import DataConfig, ModelConfig, SamplerConfig
     from diffuman4d_torch.data.dataset import SpaTemDataset
-    from diffuman4d_torch.sampling.loader import build_models
-    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
-    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.sampling.loader import load_pipeline
     from diffuman4d_torch.training.data import WindowBatcher, WindowBatcherConfig
 
     logging.basicConfig(level=logging.INFO)
     kv = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
-    if "model_dir" in kv:
-        raise NotImplementedError("loading a checkpoint directory is not ported yet; weights "
-                                  "are random from seed=")
-    if kv.get("arch", "full") != "full":
-        raise NotImplementedError("only arch=full is ported")
-    device = kv.get("device", "cuda")
-    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[kv.get("dtype", "bf16")]
-    height, width = int(kv.get("height", 1024)), int(kv.get("width", 1024))
-    if height != width:
-        raise ValueError("the pipeline takes square images")
-    dataset = SpaTemDataset(
+    data_cfg = DataConfig(
         data_dir=kv.get("data_dir", "./data"),
         scene_label=kv.get("scene_label", ""),
-        height=height,
-        width=width,
+        height=int(kv.get("height", 1024)),
+        width=int(kv.get("width", 1024)),
+    )
+    if data_cfg.height != data_cfg.width:
+        raise ValueError("the pipeline takes square images")
+    model_cfg = ModelConfig(
+        model_dir=kv.get("model_dir", "./models/diffuman4d"),
+        arch=kv.get("arch", "full"),
+        dtype=kv.get("dtype", "bf16"),
+    )
+    dataset = SpaTemDataset(
+        data_dir=data_cfg.data_dir,
+        scene_label=data_cfg.scene_label,
+        height=data_cfg.height,
+        width=data_cfg.width,
     )
     loop_cfg = LoopConfig(
         steps=int(kv.get("steps", 1000)),
@@ -224,9 +228,8 @@ def main(argv=None) -> int:
         out_dir=kv.get("out_dir", "./runs/train"),
         seed=int(kv.get("seed", 0)),
     )
-    unet, vae = build_models(device=device, dtype=dtype, seed=loop_cfg.seed)
-    pipeline = Diffuman4DPipeline(unet, vae, Scheduler(SchedulerConfig()), image_size=height,
-                                  device=device)
+    pipeline = load_pipeline(model_cfg, SamplerConfig(seed=loop_cfg.seed), data_cfg,
+                             device=kv.get("device", "cuda"))
     images = osp.join(dataset.data_dir, dataset.scene_label, "images")
     batcher = WindowBatcher(
         dataset,

@@ -1,0 +1,85 @@
+"""Tracing and timing (counterpart of ``diffuman4d_tpu/utils/tracing.py``):
+phase timers and the torch profiler.
+
+Usage::
+
+    from diffuman4d_torch.utils.tracing import phase, report, trace_to
+
+    with phase("task/sliding_denoise"):       # wall clock, device-synced
+        ...
+    print(report())
+
+    with trace_to("results/trace_step"):      # Chrome trace of host and card
+        ...
+
+The JAX module's ``RankedLogger`` waits for a caller: a multi-process
+runner (``ROADMAP.md`` A.7).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import os.path as osp
+import time
+from collections import defaultdict
+
+import torch
+
+log = logging.getLogger(__name__)
+
+_TIMES: dict[str, list[float]] = defaultdict(list)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time a phase. With work on the card (CUDA initialised) the card is
+    synchronised at exit, so the time includes the phase's queued device
+    work."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        _TIMES[name].append(time.perf_counter() - t0)
+
+
+def report(reset: bool = False) -> dict[str, dict]:
+    out = {}
+    for name, vals in _TIMES.items():
+        out[name] = {
+            "count": len(vals),
+            "total_s": round(sum(vals), 4),
+            "mean_s": round(sum(vals) / len(vals), 4),
+            "max_s": round(max(vals), 4),
+        }
+    if reset:
+        _TIMES.clear()
+    return out
+
+
+def dump_report(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(report(), f, indent=2)
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: str):
+    """Profile the block with ``torch.profiler`` (host, and the card when
+    CUDA is available), yield the profiler for its ``key_averages()``, and
+    write ``log_dir/trace.json.gz``, a gzipped Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    path = osp.join(log_dir, "trace.json.gz")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+

@@ -1,0 +1,210 @@
+"""The port's CLI end to end against the JAX package, and its refusals.
+
+One tiny synthetic scene (6 cameras x 2 frames at 64^2, inputs [0, 3]),
+window 2, two alternation rounds (spatial, then temporal with split CFG),
+``evaluating=true``, fp32 compute over the default bf16 weight storage.
+The weights are one diffusers directory that the JAX package's
+``save_hf_checkpoint`` writes from perturbed tiny params; both sides load
+it. The port runs through ``diffuman4d_torch.cli.main([..., "device=cpu"])``
+with the JAX package's noise injected; the JAX side runs through the
+pieces its CLI calls (``build_config`` -> ``load_pipeline`` ->
+``SlidingIterativeSampler.execute_tasks`` -> ``export_to_nerfstudio`` ->
+``evaluate_results``), which keeps its XLA compiles short."""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+IMAGE = 64
+LATENT = IMAGE // 8
+ARGS = [
+    "data.scene_label=scene0",
+    f"data.height={IMAGE}",
+    f"data.width={IMAGE}",
+    "model.arch=tiny",
+    "model.dtype=fp32",
+    "model.attn_implementation=xla",
+    "sampler.spa_label_range=[0,6,1]",
+    "sampler.tem_label_range=[0,2,1]",
+    "sampler.input_spa_labels=[0,3]",
+    "sampler.window_size=2",
+    "sampler.alternation_rounds=2",
+    "evaluating=true",
+]
+# written by one side and not the other, or run logs: the JAX sampler's grid
+# state (not ported, ROADMAP.md A.3.b) and the logs of the port's CLI
+NOT_COMPARED = ("state/", "config_tree.log", "job.log")
+# the JPEGs on disk: decoded images within one uint8 level (in 0.004% of
+# their values here) re-encoded at quality 95 may move by a few levels
+# around such a value; measured here: equal
+JPEG_MAX_DIFF = 4
+JPEG_MEAN_DIFF = 0.01
+# metrics of those JPEGs against the same ground truth (measured here:
+# 1.1e-5 dB and 1.3e-6: fp32 sums in another order, fp64 SSIM blurs)
+PSNR_ATOL = 1e-3
+SSIM_ATOL = 1e-4
+
+
+def _files(root: Path) -> list[str]:
+    return sorted(p.relative_to(root).as_posix() for p in root.rglob("*")
+                  if p.is_file() and not p.relative_to(root).as_posix().startswith(NOT_COMPARED))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(JAX output dir, port output dir, JAX decodes, port decodes, rc)."""
+    from diffuman4d_tpu.configs.presets import build_config as jbuild_config
+    from diffuman4d_tpu.data.dataset import SpaTemDataset as JDataset
+    from diffuman4d_tpu.data.metrics import evaluate_results as jevaluate
+    from diffuman4d_tpu.data.synthetic import make_synthetic_scene
+    from diffuman4d_tpu.io import native as jnative
+    from diffuman4d_tpu.io.checkpoints import save_hf_checkpoint
+    from diffuman4d_tpu.io.nerfstudio import export_to_nerfstudio as jexport
+    from diffuman4d_tpu.models.unet import UNetConfig
+    from diffuman4d_tpu.models.vae import VAEConfig
+    from diffuman4d_tpu.sampling.loader import load_pipeline as jload
+    from diffuman4d_tpu.sampling.sampler import SlidingIterativeSampler as JSampler
+    from diffuman4d_tpu.utils.tracing import dump_report
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.sampling.loader import TINY_UNET, TINY_VAE
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+    from tests.torch_port_helpers import jax_unet, jax_vae
+
+    root = tmp_path_factory.mktemp("cli")
+    data, model = root / "data", root / "model"
+    make_synthetic_scene(str(data), "scene0", num_cams=6, num_frames=2, image_size=IMAGE)
+    # the loader's model.arch=tiny shape, with perturbed weights
+    _, uparams = jax_unet(TINY_UNET)
+    _, vparams = jax_vae(TINY_VAE)
+    save_hf_checkpoint(str(model), {"unet": uparams, "vae": vparams}, UNetConfig(**TINY_UNET),
+                       VAEConfig(**TINY_VAE))
+    args = ARGS + [f"data.data_dir={data}", f"model.model_dir={model}"]
+
+    # the JAX side, through the pieces of its CLI
+    jax_out = root / "jax"
+    cfg = jbuild_config(args + [f"sampler.output_dir={jax_out}"])
+    jnative.available()  # settles its decoder lookup before any threaded load
+    dataset = JDataset(data_dir=cfg.data.data_dir, scene_label=cfg.data.scene_label,
+                       height=cfg.data.height, width=cfg.data.width,
+                       has_gt_target=cfg.data.has_gt_target, skeletons_uint8=True)
+    jpipe = jload(cfg.model, cfg.sampler, cfg.data)
+    jdecoded: list = []
+    decode = jpipe.decode
+    jpipe.decode = lambda latents: jdecoded.append(np.asarray(decode(latents))) or jdecoded[-1]
+    jsampler = JSampler(dataset, jpipe, output_dir=cfg.sampler.output_dir,
+                        spa_label_range=cfg.sampler.spa_label_range,
+                        tem_label_range=cfg.sampler.tem_label_range,
+                        input_spa_labels=cfg.sampler.input_spa_labels, seed=cfg.sampler.seed)
+    jsampler.execute_tasks()
+    dump_report(str(jax_out / "phases.json"))
+    jexport(str(data / "scene0"), str(jax_out), jsampler.input_spa_labels)
+    jevaluate(str(data), "scene0", str(jax_out), jsampler.input_spa_labels)
+
+    # the port, through its CLI, with the JAX package's noise
+    port_out = root / "port"
+    pdecoded: list = []
+    pdecode = Diffuman4DPipeline.decode
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Diffuman4DPipeline, "init_noise", lambda self, spa, tem, seed:
+                   torch.from_numpy(np.array(jpipe.init_noise(spa, tem, seed))))
+        mp.setattr(Diffuman4DPipeline, "posterior_noise", lambda self, labels: torch.stack([
+            torch.from_numpy(np.array(jax.random.normal(
+                jpipe._frame_key(lb), (LATENT, LATENT, 4)))) for lb in labels]))
+        mp.setattr(Diffuman4DPipeline, "decode", lambda self, latents:
+                   pdecoded.append(pdecode(self, latents)) or pdecoded[-1])
+        rc = cli.main(args + [f"sampler.output_dir={port_out}", "device=cpu"])
+    return jax_out, port_out, jdecoded, pdecoded, rc
+
+
+def test_cli_writes_the_jax_package_files(runs):
+    jax_out, port_out, _, _, rc = runs
+    assert rc == 0
+    files = _files(port_out)
+    assert files == _files(jax_out)
+    assert len([f for f in files if f.startswith("images/")]) == 12  # 6 cameras x 2 frames
+    assert {"metrics.json", "phases.json", "transforms.json", "transforms_input.json",
+            "export_manifest.json"} <= set(files)
+    assert (port_out / "config_tree.log").is_file() and (port_out / "job.log").is_file()
+    for name in ("transforms.json", "transforms_input.json", "export_manifest.json"):
+        assert json.loads((port_out / name).read_text()) == json.loads((jax_out / name).read_text())
+    frames = json.loads((port_out / "transforms_input.json").read_text())["frames"]
+    assert {f["camera_label"] for f in frames} == {"00", "03"}
+    phases = json.loads((port_out / "phases.json").read_text())
+    assert {"cli/sampling", "cli/to_nerfstudio", "cli/evaluate", "task/sliding_denoise"} <= set(
+        phases)
+    assert phases["task/sliding_denoise"]["count"] == 6  # 2 spatial + 4 temporal tasks
+
+
+def test_cli_images_match_jax(runs):
+    jax_out, port_out, jdecoded, pdecoded, _ = runs
+    # the temporal round decodes its 4 target cameras' 2 frames each
+    assert len(pdecoded) == len(jdecoded) == 4
+    got, want = np.concatenate(pdecoded).astype(int), np.concatenate(jdecoded).astype(int)
+    assert got.shape == want.shape == (8, IMAGE, IMAGE, 3)
+    assert np.abs(got - want).max() <= 1
+    assert np.mean(got == want) > 0.99
+    for rel in _files(port_out):
+        if rel.startswith("images/"):
+            a = np.asarray(Image.open(port_out / rel), np.int32)
+            b = np.asarray(Image.open(jax_out / rel), np.int32)
+            assert np.abs(a - b).max() <= JPEG_MAX_DIFF, rel
+            assert np.abs(a - b).mean() <= JPEG_MEAN_DIFF, rel
+
+
+def test_cli_metrics_match_jax(runs):
+    jax_out, port_out, _, _, _ = runs
+    got = json.loads((port_out / "metrics.json").read_text())
+    want = json.loads((jax_out / "metrics.json").read_text())
+    assert [v["key"] for v in got["values"]] == [v["key"] for v in want["values"]]
+    assert len(got["values"]) == 8  # 4 target cameras x 2 frames
+    for g, w in zip(got["values"], want["values"]):
+        assert abs(g["psnr"] - w["psnr"]) <= PSNR_ATOL, g["key"]
+        assert abs(g["ssim"] - w["ssim"]) <= SSIM_ATOL, g["key"]
+        assert np.isnan(g["lpips"]) and np.isnan(w["lpips"])
+    assert got["mean"]["lpips"] is None and want["mean"]["lpips"] is None
+
+
+# ------------------------------------------------------------------ refusals
+def test_cli_without_a_card_exits_and_never_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.sampling import loader
+
+    def refuse(*a, **k):
+        raise AssertionError("the CLI built a pipeline without a card")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(loader, "load_pipeline", refuse)
+    out = tmp_path / "out"
+    assert cli.main(ARGS + [f"sampler.output_dir={out}"]) != 0
+    assert cli.main(ARGS + [f"sampler.output_dir={out}", "device=cuda"]) != 0
+    assert "device=cpu" in capsys.readouterr().err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("override,item", [
+    ("sampler.save_debug_grids=true", "A.3.e"),
+    ("sampler.tasks_per_wave=2", "A.7"),
+    ("sampler.split_cfg_domains=[spatial,frames]", "'spatial' and 'temporal'"),
+    ("grid_state", "A.3.b"),
+])
+def test_cli_refuses_options_not_ported(tmp_path, monkeypatch, override, item):
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.sampling import loader
+
+    monkeypatch.setattr(loader, "load_pipeline", lambda *a, **k: pytest.fail("ran"))
+    out = tmp_path / "out"
+    args = ARGS + [f"sampler.output_dir={out}", "device=cpu"]
+    if override == "grid_state":
+        (out / "state").mkdir(parents=True)
+        (out / "state" / "grid_state.d4d").write_bytes(b"")
+    else:
+        args.append(override)
+    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
+        cli.main(args)

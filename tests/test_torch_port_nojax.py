@@ -1,13 +1,18 @@
-"""The port never imports jax, flax, optax, orbax or the JAX package.
+"""The port never imports jax, flax, optax, orbax, yaml, safetensors or the
+JAX package.
 
 ``tests/conftest.py`` imports jax into this process, so the check runs in a
 fresh interpreter in which ``import jax`` / ``flax`` / ``optax`` / ``orbax``
-fail: it builds a tiny random-weight model with the port, runs one demo_3d
-spatial task through the port's sampler on a synthetic scene and then two
-steps of the port's training loop, end to end on the CPU, imports the
-attention tuner and routes its hot shapes through the committed dispatch
-table, imports the forward benchmark, and finally checks that no module of those packages or of
-``diffuman4d_tpu`` was loaded."""
+/ ``yaml`` / ``safetensors`` fail (the card machine has neither PyYAML nor
+safetensors): it builds a tiny random-weight model with the port, runs one
+demo_3d spatial task through the port's sampler on a synthetic scene and
+then two steps of the port's training loop, end to end on the CPU, runs the
+port's CLI once (``exp=demo_3d`` at ``model.arch=tiny``, ``device=cpu``,
+with the nerfstudio export and the metrics), writes and reloads a
+diffusers checkpoint, imports the attention tuner and routes its hot shapes
+through the committed dispatch table, imports the forward benchmark, and
+finally checks that no module of those packages or of ``diffuman4d_tpu``
+was loaded."""
 
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = textwrap.dedent("""
     import sys, tempfile
-    for blocked in ("jax", "flax", "optax", "orbax"):
+    for blocked in ("jax", "flax", "optax", "orbax", "yaml", "safetensors"):
         sys.modules[blocked] = None
 
     import numpy as np
@@ -69,6 +74,29 @@ SCRIPT = textwrap.dedent("""
         assert state.step == 2 and not torch.equal(before, unet.conv_in.weight)
         assert all(torch.isfinite(p).all() for p in state.params.values())
 
+        # the CLI: production demo_3d's preset at the tiny shape, on the CPU
+        from diffuman4d_torch import cli
+
+        make_synthetic_scene(tmp + "/c", "scene0", num_cams=6, num_frames=1, image_size=64)
+        out = tmp + "/cli"
+        assert cli.main(["exp=demo_3d", f"data.data_dir={tmp}/c", "data.scene_label=scene0",
+                         "data.height=64", "data.width=64", "model.arch=tiny",
+                         "model.dtype=fp32", "sampler.spa_label_range=[0,6,1]",
+                         "sampler.input_spa_labels=[0,3]", "sampler.window_size=2",
+                         f"sampler.output_dir={out}", "evaluating=true", "device=cpu"]) == 0
+        import json
+
+        assert len(json.load(open(out + "/metrics.json"))["values"]) == 4
+        assert len(json.load(open(out + "/transforms.json"))["frames"]) == 6
+
+        # a diffusers directory, written and read without the safetensors package
+        from diffuman4d_torch.io.checkpoints import load_hf_checkpoint, save_hf_checkpoint
+
+        save_hf_checkpoint(tmp + "/model", unet, vae)
+        ucfg, _, _, ustate, _ = load_hf_checkpoint(tmp + "/model", dtype=torch.float32)
+        assert ucfg == unet.config
+        assert all(torch.equal(v, ustate[k]) for k, v in unet.state_dict().items())
+
     # the attention tuner's entry point and the table-driven route
     from diffuman4d_torch import tune_attention
     from diffuman4d_torch.ops.attention import _dispatch_table, route
@@ -82,8 +110,8 @@ SCRIPT = textwrap.dedent("""
 
     assert bench_attention_fwd.main(["--baseline", "."]) == 2  # no card: refuses to time
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                           "diffuman4d_tpu")
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+                                           "safetensors", "diffuman4d_tpu")
                     and sys.modules[m] is not None)
     assert not loaded, loaded
     print("PORT_OK")

@@ -329,3 +329,50 @@ def test_loop_trains_checkpoints_and_resumes(tmp_path, ema_host):
     assert set(a) == set(dict(pipe.unet.named_parameters()))  # diffusers key names
     assert all(torch.equal(a[k], b[k]) for k in a)  # the EMA weights, resumed exactly
     assert not torch.equal(a["conv_in.weight"], full.params["conv_in.weight"])
+
+
+def test_loop_main_loads_a_jax_checkpoint(tmp_path):
+    """``python -m diffuman4d_torch.training.loop model_dir=...`` loads a
+    diffusers directory the JAX package wrote (through ``load_pipeline``,
+    storage bf16 as in the JAX loop, compute fp32) and trains from it as
+    ``train`` does on the same weights carried by ``state_dicts_from_flax``."""
+    from diffuman4d_tpu.io.checkpoints import save_hf_checkpoint
+    from diffuman4d_tpu.models.unet import UNetConfig
+    from diffuman4d_tpu.models.vae import VAEConfig
+    from diffuman4d_torch.data import SpaTemDataset, make_synthetic_scene
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training.data import WindowBatcher, WindowBatcherConfig
+    from diffuman4d_torch.training.loop import LoopConfig, main, train
+    from tests.torch_port_helpers import TINY_VAE, jax_vae, port_vae
+
+    _, uparams = jax_unet(TINY_UNET)
+    _, vparams = jax_vae(TINY_VAE)
+    save_hf_checkpoint(str(tmp_path / "model"), {"unet": uparams, "vae": vparams},
+                       UNetConfig(**TINY_UNET), VAEConfig(**TINY_VAE))
+    make_synthetic_scene(str(tmp_path / "scene"), "scene0", num_cams=6, num_frames=2,
+                         image_size=64)
+    assert main([f"data_dir={tmp_path / 'scene'}", "scene_label=scene0", "height=64",
+                 "width=64", "steps=2", "window_size=2", "input_spa_labels=00,03",
+                 f"model_dir={tmp_path / 'model'}", "dtype=fp32", "device=cpu",
+                 f"out_dir={tmp_path / 'main'}"]) == 0
+
+    # the same weights rounded to bf16 storage, carried into fp32 modules
+    bf16 = lambda tree: jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), tree)  # noqa: E731
+    pipe = Diffuman4DPipeline(port_unet(TINY_UNET, bf16(uparams)),
+                              port_vae(TINY_VAE, bf16(vparams)),
+                              Scheduler(SchedulerConfig()), image_size=64, device="cpu")
+    batcher = WindowBatcher(
+        SpaTemDataset(data_dir=str(tmp_path / "scene"), scene_label="scene0", height=64,
+                      width=64),
+        WindowBatcherConfig(window_size=2, tem_labels=["000000", "000001"],
+                            input_spa_labels=["00", "03"]))
+    train(pipe, batcher, LoopConfig(steps=2, window_size=2, out_dir=str(tmp_path / "ref")))
+
+    read = lambda d: json.loads((tmp_path / d / "metrics.jsonl").read_text().splitlines()[0])  # noqa: E731
+    assert read("main")["loss"] == pytest.approx(read("ref")["loss"], rel=1e-6)
+    got = torch.load(tmp_path / "main" / "state_0000002.pt", weights_only=True)["params"]
+    want = torch.load(tmp_path / "ref" / "state_0000002.pt", weights_only=True)["params"]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7)
