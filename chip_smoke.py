@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
     python3 chip_smoke.py --phases build,train,kernels   # the train path only
     python3 chip_smoke.py --phases build,tune,kernels    # the attention sweep only
+    python3 chip_smoke.py --phases build,demo4d          # demo_4d, budgeted and resumed
 
 Phases:
 
@@ -51,6 +52,32 @@ Phases:
    loaded weights must equal the saved ones bit for bit; the task must run
    44 windows; B10, B3 and B4 must have launched, every attention launch on
    the kernel the table routes its shape to.
+3c. ``demo4d``: the ``exp=demo_4d`` preset's schedule (window 12, stride
+   2, three rounds spatial / temporal / spatial, DDIM, CFG 2.0 split on the
+   temporal domain, bf16, random weights from seed 0) on a synthetic scene of
+   16 cameras x 12 frames at 1024^2 (4 frames rendered, the rest hardlinked),
+   inputs [1, 5, 9, 13]: 12 spatial tasks per spatial round and 12 temporal
+   tasks of L = 24 rows, 6 windows each, 216 window steps, in two parts on
+   one output directory. (a) The sampler, built as the CLI builds it, with
+   ``pose_cache_mb=200`` (the 16-row spatial tasks materialise their pose
+   features, the 24-row temporal tasks stream them) in chunks of 2 windows
+   (3 a task), ``task_budget=17`` and a state every 4 tasks: it must stop
+   with ``state/grid_state.d4d`` at round 1 + 5 tasks, its latents equal to
+   the card's grid bit for bit. Then, for one temporal task, every chunk's
+   streamed pose features must equal the cache's materialised rows -- at the
+   pipeline's chunking of the task's windows and at windows of 4 + 4 rows
+   whose chunk unions are renumbered and padded (pad_u 12, 4 pad rows) --
+   and the cached conditional latents warm must equal cold, bit for bit,
+   each row computed beside other rows on the two sides.
+   (b) ``cli.main(["exp=demo_4d", ...,
+   "evaluating=true"])`` must resume at round 1 + 5 tasks, run the other 7 +
+   12 tasks, return 0 and write 192 JPEGs, ``transforms.json`` with 192
+   frames, ``metrics.json`` with 144 values and a finite mean PSNR and a
+   final state at round 3 with every target cell at the last step and every
+   input cell at 0. Counters and shape records are zeroed just before each
+   part and read just after: B10, B3 and B4 must launch in both, every
+   attention launch on the kernel the table routes its shape to, at the
+   spatial (L = 16, CFG batch 32) and temporal (L = 24, split CFG) shapes.
 4. ``train``: three optimiser steps of the full-width UNet (0.87 B
    parameters, fp32 masters, bf16 compute, per-block remat, AdamW) on one
    window batch of the synthetic scene through ``WindowBatcher`` +
@@ -75,6 +102,17 @@ Phases:
 ``--phases profile`` (not in the default set) adds a torch.profiler
 breakdown of one CFG window step, one VAE decode micro-batch and one train
 step by kernel group, written beside the ``--out`` file as ``profile_*.txt``.
+``--phases build,demo4d_prod`` (not in the default set) runs the production
+demo_4d grid (48 cameras x 150 frames at 1024^2, 4 frames rendered) through
+``python -m diffuman4d_torch.demo4d_prefix``'s ``main``: a session of 2
+spatial tasks, then a fresh call that resumes from its state and runs 1
+more, with the seconds per task, ``save_state``'s copy to the host and
+write of the 0.94 GB grid, the resume's load and the peak memory; then a
+session of two production temporal tasks (300 rows, 75 windows, streamed
+in 15 chunks of 5) from a state that claims round 1 done.
+``--phases build,overlap`` (not in the default set) times 4 tasks of
+demo_4d's last round (16 x 12, every target decoded) through the saver
+thread and through the serial path, in turns after one untimed run.
 
 Exit code 0 only when every phase passed. The last stdout line is the JSON
 device record; the line before it lists the kernels. Without a CUDA device
@@ -95,8 +133,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "tune", "reference", "slice", "cli", "train", "kernels")
-EXTRA_PHASES = ("profile",)  # run only when asked for
+PHASES = ("build", "tune", "reference", "slice", "cli", "demo4d", "train", "kernels")
+EXTRA_PHASES = ("profile", "demo4d_prod", "overlap")  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
 # 128^2 latents (3D window attention and per-frame attention at each level)
@@ -116,6 +154,35 @@ SLICE_ATTN64_SHAPES = ATTN64_SHAPES + [(32, 256, 20)]
 # 4 of them inputs, so 44 targets, 44 windows at stride 1
 CLI_CAMERAS, CLI_INPUTS = 48, 4
 ATTN512_SHAPES = [(2, 16384, 1)]  # VAE mid block at 128^2 latents
+# demo4d: the demo_4d preset's schedule on the smallest grid its window
+# admits with more than one round, 16 cameras (12 targets) x 12 frames
+D4D_CAMERAS, D4D_FRAMES, D4D_INPUTS = 16, 12, (1, 5, 9, 13)
+# part (a) stops after round 1 (12 spatial tasks) and 5 temporal tasks, with
+# a state every 4 tasks; at 200 MB of pose cache the 16-row spatial tasks
+# (168 MB of pose features) materialise and the 24-row temporal tasks
+# (252 MB) stream, as production's 48-row and 300-row tasks do at 640 MB
+D4D_BUDGET, D4D_CKPT_EVERY, D4D_POSE_CACHE_MB = 17, 4, 200
+D4D_WINDOWS = 6  # windows per task in both domains (12 targets, stride 2)
+# part (a)'s pipeline streams a temporal task in chunks of 2 windows (3
+# chunks a task), as production's 300-row tasks run in chunks of 5; every
+# window of a 24-row task holds all 24 rows, so the equality check adds
+# windows of 4 + 4 rows whose chunk unions differ (10, 10 and 12 rows:
+# pad_u 12, 4 pad rows), which the pipeline renumbers and pads
+D4D_WINDOW_CHUNK = 2
+D4D_PADDED_WINDOWS = [(k, 4) for k in (0, 1, 2, 3, 4, 6)]  # (first frame, frames)
+# the overlap phase: tasks of demo_4d's last round (spatial, every target
+# row decoded) per run, through the saver thread and through the serial path
+OVERLAP_TASKS = 4
+# demo4d_prod: production temporal tasks in one session, so that the IO and
+# saver threads overlap a denoise as in a long run
+PROD_TEMPORAL_TASKS = 2
+# (B, S, H) at head dim 64 of a temporal window: L = 24 rows (12 frames of
+# the condition camera and of the target), CFG split into two calls of
+# batch L: 3D attention over all 24 frames, per-frame attention at each level
+TEMPORAL_ATTN64_SHAPES = [
+    (1, 24 * 4096, 10), (24, 16384, 5), (24, 4096, 10), (1, 24 * 1024, 20), (24, 1024, 20),
+    (1, 24 * 256, 20), (24, 256, 20),
+]
 # hot shapes of the tuner timed by the tune phase: the per-frame 16^2, 32^2
 # and 64^2 attention, the 3D 16^2 mid block and, where the two-level kernel
 # was meant to win, the 3D 32^2 and 64^2 levels
@@ -1143,6 +1210,456 @@ def phase_cli(unet, vae, work: Path) -> dict:
     return res
 
 
+def _recording(acc: list, name: str):
+    """A maker for ``_patched`` that wraps the pipeline's ``name``
+    (``sliding_denoise`` or ``prepare_conditions``) to append (name, domain,
+    streamed, windows, seconds) per call; the call ends with a synchronise,
+    as the sampler's phase around it does."""
+    import torch
+
+    def make(fn):
+        def run(self, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if name == "sliding_denoise":
+                cond, _, _, windows, domain = a
+                acc.append((name, domain, "skel_rows" in cond, len(windows), secs))
+            else:
+                acc.append((name, a[0].domain, "skel_rows" in out, 0, secs))
+            return out
+        return run
+    return make
+
+
+def _by_domain(calls: list) -> dict:
+    """Per domain: tasks, streamed tasks, windows and seconds of the
+    recorded calls."""
+    out: dict = {}
+    for name, domain, streamed, windows, secs in calls:
+        d = out.setdefault(domain, {"tasks": 0, "streamed": 0, "windows": 0,
+                                    "sliding_denoise_s": 0.0, "prepare_conditions_s": 0.0})
+        d[f"{name}_s"] += secs
+        if name == "sliding_denoise":
+            d["tasks"] += 1
+            d["streamed"] += streamed
+            d["windows"] += windows
+    for d in out.values():
+        d["s_per_window"] = d["sliding_denoise_s"] / max(d["windows"], 1)
+    return out
+
+
+def _streamed_chunks(pipe, cond, windows, c: int, materialised) -> dict:
+    """Every chunk's streamed pose features, pad rows included, against the
+    materialised rows of the same labels, and each chunk's renumbered
+    windows mapped back through its row union against the task's."""
+    import numpy as np
+    import torch
+
+    pad_u = pipe._chunk_pad_u(windows, c)
+    unequal, rows, padded = [], 0, 0
+    for i in range(0, len(windows), c):
+        w = windows[i : i + c]
+        chunk, wc = pipe._chunk_cond(cond, w, pad_u)
+        U, _ = pipe._chunk_rows(w, pad_u)
+        if not np.array_equal(U[wc], w):
+            unequal.append(("windows", i))
+        feats = chunk["pose_features"]
+        if feats.shape[0] != pad_u:
+            unequal.append(("rows", i, feats.shape[0]))
+        unequal += [(i, r) for j, r in enumerate(U.tolist())
+                    if not torch.equal(feats[j], materialised[r])]
+        rows += len(U)
+        padded += pad_u - np.unique(w).size
+    return {"chunks": -(-len(windows) // c), "pad_u": pad_u, "rows": rows,
+            "padded_rows": padded, "unequal": unequal}
+
+
+def _cache_equalities(pipe, sampler) -> dict:
+    """On the card, for the first temporal task: its streamed per-chunk pose
+    features, chunk by chunk, against the cache's materialised rows -- at
+    the pipeline's own chunking of the task's windows, and at windows of 4 +
+    4 rows whose chunk unions are padded -- and its cached conditional
+    latents warm against cold. On each side a row shares its micro-batch
+    with other rows (the cache is first filled with every third row), so
+    equality shows that a row's value does not depend on its batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    task = sampler.all_tasks[1][0]
+    sample = sampler.load_sample(task)
+    windows = sampler._windows_for(task, len(sample.labels))
+    half = len(sample.labels) // 2  # condition rows first, then the target's
+    padded = np.stack([np.r_[np.arange(k, k + n), half + np.arange(k, k + n)]
+                       for k, n in D4D_PADDED_WINDOWS])
+    cond_rows = list(np.nonzero(sample.cond_masks == 0.0)[0])
+    with torch.no_grad():
+        pipe.clear_condition_caches()
+        cond = pipe.prepare_conditions(sample)
+        pipe._pose_features_lru(dataclasses.replace(sample, labels=sample.labels[1::3],
+                                                    skeletons=sample.skeletons[1::3]))
+        materialised = pipe._pose_features_lru(sample)
+        task_chunks = _streamed_chunks(pipe, cond, windows,
+                                       pipe._window_chunk_size(len(windows)), materialised)
+        padded_chunks = _streamed_chunks(pipe, cond, padded, D4D_WINDOW_CHUNK, materialised)
+        pipe.clear_condition_caches()
+        cold = pipe._cond_latents_cached(sample, cond_rows)
+        pipe.clear_condition_caches()
+        pipe._cond_latents_cached(sample, cond_rows[1::3])
+        warm = pipe._cond_latents_cached(sample, cond_rows)
+        hits = pipe._cond_latents_cached(sample, cond_rows)
+        pipe.clear_condition_caches()
+    return {"task": task.domain_label, "streamed": "skel_rows" in cond,
+            "task_chunks": task_chunks, "padded_chunks": padded_chunks,
+            "cond_rows": len(cond_rows), "cond_latents_equal": bool(
+                torch.equal(cold, warm) and torch.equal(cold, hits))}
+
+
+def phase_demo4d(work: Path) -> dict:
+    """demo_4d's schedule at full width in two parts on one output
+    directory: (a) a budgeted prefix through the sampler, (b) the rest
+    through the port's CLI, which resumes from (a)'s grid state."""
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.configs.presets import build_config
+    from diffuman4d_torch.io.gridstate import read_state
+    from diffuman4d_torch.ops import conv, flash_attention as fa
+    from diffuman4d_torch.sampling import loader, pipeline as pp
+    from diffuman4d_torch.sampling.sampler import _to_host_bits
+    from diffuman4d_torch.utils.tracing import report
+
+    out = work / "demo4d_out"
+    t0 = time.perf_counter()
+    data_dir = _d4d_scene(work)
+    scene_s = time.perf_counter() - t0
+    argv = ["exp=demo_4d", f"data.data_dir={data_dir}", "data.scene_label=scene0",
+            f"sampler.spa_label_range=[0,{D4D_CAMERAS},1]",
+            f"sampler.tem_label_range=[0,{D4D_FRAMES},1]",
+            "sampler.input_spa_labels=[" + ",".join(map(str, D4D_INPUTS)) + "]",
+            f"sampler.output_dir={out}", "evaluating=true"]
+    cfg = build_config(argv)
+    total_steps = loader.sliding_from(cfg.sampler).total_steps
+    wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
+    expected = [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES + TEMPORAL_ATTN64_SHAPES]
+
+    def counts():
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches.update(_d64_split(fa.flash_attention_d64.shapes))
+        return launches, {name: sorted(fn.shapes) for name, fn in wrappers.items()}
+
+    # (a) the budgeted prefix: the sampler directly, the CLI's construction
+    calls_a: list = []
+    pipe = loader.load_pipeline(cfg.model, cfg.sampler, cfg.data, device="cuda",
+                                pose_cache_mb=D4D_POSE_CACHE_MB, window_chunk=D4D_WINDOW_CHUNK)
+    sampler = cli.build_sampler(cfg, pipe, task_budget=D4D_BUDGET,
+                                checkpoint_every_tasks=D4D_CKPT_EVERY)
+    fresh = (sampler._completed_rounds, sampler._resume_tasks_done)
+    report(reset=True)
+    with _patched(pp.Diffuman4DPipeline, "sliding_denoise",
+                  _recording(calls_a, "sliding_denoise")), \
+            _patched(pp.Diffuman4DPipeline, "prepare_conditions",
+                     _recording(calls_a, "prepare_conditions")):
+        torch.cuda.reset_peak_memory_stats()
+        _reset(wrappers.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.execute_tasks()
+        torch.cuda.synchronize()
+        prefix_s = time.perf_counter() - t0
+    launches_a, shapes_a = counts()
+    routed_a = _check_routes(fa.KERNELS, expected)
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    phases_a = report(reset=True)
+    meta_a, data = read_state(sampler._state_path)
+    grid_bits = _to_host_bits(sampler.grid_latents)
+    state_a_equal = bool(np.array_equal(np.asarray(data["latents"]), grid_bits)
+                         and np.array_equal(np.asarray(data["t_idx"]), sampler.grid_t_idx))
+    state_gb = Path(sampler._state_path).stat().st_size / 1e9
+    del data
+    t0 = time.perf_counter()
+    equalities = _cache_equalities(pipe, sampler)
+    equalities_s = time.perf_counter() - t0
+    del sampler, pipe
+    torch.cuda.empty_cache()
+
+    # (b) the rest through the CLI, from (a)'s state
+    calls_b: list = []
+    resumed = {}
+
+    def recording_build(build):
+        def run(*a, **k):
+            s = build(*a, **k)
+            resumed["at"] = [s._completed_rounds, s._resume_tasks_done]
+            return s
+        return run
+
+    with _patched(cli, "build_sampler", recording_build), \
+            _patched(pp.Diffuman4DPipeline, "sliding_denoise",
+                     _recording(calls_b, "sliding_denoise")), \
+            _patched(pp.Diffuman4DPipeline, "prepare_conditions",
+                     _recording(calls_b, "prepare_conditions")):
+        torch.cuda.reset_peak_memory_stats()
+        _reset(wrappers.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches_b, shapes_b = counts()
+    routed_b = _check_routes(fa.KERNELS, expected)
+    peak_b = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    meta, data = read_state(str(out / "state" / "grid_state.d4d"))
+    t_idx = np.asarray(data["t_idx"])
+    inputs = [int(i) for i in D4D_INPUTS]
+    targets = [i for i in range(D4D_CAMERAS) if i not in inputs]
+    jpgs = sorted((out / "images").rglob("*.jpg"))
+    metrics = json.loads((out / "metrics.json").read_text())
+    phases = json.loads((out / "phases.json").read_text())
+    res = {"scene_s": scene_s, "prefix_s": prefix_s, "cli_s": cli_s, "equalities_s": equalities_s,
+           "prefix": {"fresh_at": fresh, "state": meta_a, "state_equals_grid": state_a_equal,
+                      "state_gb": state_gb, "by_domain": _by_domain(calls_a),
+                      "phases": phases_a, "peak_gb": peak_a, "launches": launches_a,
+                      "routed": routed_a},
+           "equalities": equalities,
+           "cli": {"rc": rc, "resumed_at": resumed.get("at"), "by_domain": _by_domain(calls_b),
+                   "phases": phases, "peak_gb": peak_b, "launches": launches_b,
+                   "routed": routed_b},
+           "launches": {n: launches_a[n] + launches_b[n] for n in launches_a},
+           "shapes": {n: sorted(set(shapes_a[n]) | set(shapes_b[n])) for n in shapes_a},
+           "state": meta, "jpgs": len(jpgs),
+           "frames": len(json.loads((out / "transforms.json").read_text())["frames"]),
+           "metrics_values": len(metrics["values"]), "metrics_mean": metrics["mean"],
+           "targets_at": sorted(set(t_idx[targets].ravel().tolist())),
+           "inputs_at": sorted(set(t_idx[inputs].ravel().tolist())), "total_steps": total_steps}
+    log(f"demo4d: {json.dumps(res)}")
+    log(f"demo4d: prefix {prefix_s:.2f} s ({_by_domain(calls_a)}), state "
+        f"{phases_a.get('save_state/d2h', {}).get('mean_s')} s d2h + "
+        f"{phases_a.get('save_state/write', {}).get('mean_s')} s write ({state_gb:.3f} GB); "
+        f"CLI {cli_s:.2f} s, resume {phases.get('resume/load', {}).get('total_s')} s, "
+        f"peak {peak_a:.2f} / {peak_b:.2f} GB, launches {res['launches']}")
+    n_tem = len(targets)  # temporal tasks: one per target camera
+    want = {"fresh_at": (0, 0), "prefix_state": (1, D4D_BUDGET - D4D_FRAMES),
+            "prefix_calls": {"spatial": (D4D_FRAMES, 0, D4D_FRAMES * D4D_WINDOWS),
+                             "temporal": (D4D_BUDGET - D4D_FRAMES, D4D_BUDGET - D4D_FRAMES,
+                                          (D4D_BUDGET - D4D_FRAMES) * D4D_WINDOWS)},
+            "state_equals_grid": True, "rc": 0, "resumed_at": [1, D4D_BUDGET - D4D_FRAMES],
+            "cli_calls": {"temporal": (n_tem - (D4D_BUDGET - D4D_FRAMES), 0,
+                                       (n_tem - (D4D_BUDGET - D4D_FRAMES)) * D4D_WINDOWS),
+                          "spatial": (D4D_FRAMES, 0, D4D_FRAMES * D4D_WINDOWS)},
+            "jpgs": D4D_CAMERAS * D4D_FRAMES, "frames": D4D_CAMERAS * D4D_FRAMES,
+            "metrics_values": n_tem * D4D_FRAMES, "state": (3, 0),
+            "targets_at": [total_steps], "inputs_at": [0],
+            "equalities": (True, D4D_WINDOWS // D4D_WINDOW_CHUNK, [], 12, 4, [], True)}
+
+    def calls(by):
+        return {d: (v["tasks"], v["streamed"], v["windows"]) for d, v in by.items()}
+
+    got = {"fresh_at": fresh, "prefix_state": (meta_a["completed_rounds"],
+                                               meta_a["tasks_done_in_round"]),
+           "prefix_calls": calls(res["prefix"]["by_domain"]), "state_equals_grid": state_a_equal,
+           "rc": rc, "resumed_at": resumed.get("at"), "cli_calls": calls(res["cli"]["by_domain"]),
+           "jpgs": res["jpgs"], "frames": res["frames"], "metrics_values": res["metrics_values"],
+           "state": (meta["completed_rounds"], meta["tasks_done_in_round"]),
+           "targets_at": res["targets_at"], "inputs_at": res["inputs_at"],
+           "equalities": (equalities["streamed"], equalities["task_chunks"]["chunks"],
+                          equalities["task_chunks"]["unequal"],
+                          equalities["padded_chunks"]["pad_u"],
+                          equalities["padded_chunks"]["padded_rows"],
+                          equalities["padded_chunks"]["unequal"],
+                          equalities["cond_latents_equal"])}
+    if wrong := {k: (got[k], v) for k, v in want.items() if got[k] != v}:
+        raise AssertionError(f"demo4d: (got, expected) {wrong}")
+    if not math.isfinite(metrics["mean"]["psnr"]):
+        raise AssertionError(f"demo4d: mean PSNR {metrics['mean']}")
+    for part, launches in (("prefix", launches_a), ("cli", launches_b)):
+        for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
+            if not launches[name]:
+                raise AssertionError(f"demo4d {part}: {name} never launched: {launches}")
+    return res
+
+
+def _d4d_scene(work: Path) -> Path:
+    """The demo4d phase's 16-camera x 12-frame scene at 1024^2 (made once)."""
+    from diffuman4d_torch.data import make_synthetic_scene
+
+    data_dir = work / "data4d"
+    if not (data_dir / "scene0" / "transforms.json").is_file():
+        make_synthetic_scene(str(data_dir), "scene0", num_cams=D4D_CAMERAS,
+                             num_frames=D4D_FRAMES, image_size=1024, unique_frames=4)
+    return data_dir
+
+
+def phase_overlap(work: Path) -> dict:
+    """The saver thread against the serial path on demo_4d's last round
+    (spatial, every target row decoded and written), 16 x 12 at 1024^2:
+    ``OVERLAP_TASKS`` tasks through ``execute_tasks`` (next load on the IO
+    thread, decode + save on the saver thread) and the same tasks through
+    ``execute_one_task`` one after another (load, denoise, decode, save),
+    in turns after one untimed serial run, from the same grid and with
+    cold caches each time. The grid
+    is set as after round 2 (targets at 2 x steps per round); the latents
+    are the initial noise, which changes no work."""
+    import torch
+
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.configs.presets import build_config
+    from diffuman4d_torch.sampling import loader
+    from diffuman4d_torch.utils.tracing import report
+
+    data_dir = _d4d_scene(work)
+    argv = ["exp=demo_4d", f"data.data_dir={data_dir}", "data.scene_label=scene0",
+            f"sampler.spa_label_range=[0,{D4D_CAMERAS},1]",
+            f"sampler.tem_label_range=[0,{D4D_FRAMES},1]",
+            "sampler.input_spa_labels=[" + ",".join(map(str, D4D_INPUTS)) + "]",
+            f"sampler.output_dir={work / 'overlap_out'}"]
+    cfg = build_config(argv)
+    pipe = loader.load_pipeline(cfg.model, cfg.sampler, cfg.data, device="cuda")
+    sampler = cli.build_sampler(cfg, pipe, task_budget=OVERLAP_TASKS, checkpoint_every_tasks=0)
+    targets = [sampler._spa_index[s] for s in sampler.target_spa_labels]
+    t0_idx = sampler.grid_t_idx.copy()
+    t0_idx[targets] = 2 * pipe.sliding.steps_per_alt
+    lat0 = sampler.grid_latents.clone()
+    last = len(sampler.all_tasks) - 1
+
+    def start():
+        sampler.grid_latents, sampler.grid_t_idx = lat0.clone(), t0_idx.copy()
+        sampler._completed_rounds, sampler._resume_tasks_done, sampler._tasks_run = last, 0, 0
+        pipe.clear_condition_caches()
+        report(reset=True)
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def threaded():
+        t0 = start()
+        sampler.execute_tasks()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def serial():
+        t0 = start()
+        for task in sampler.all_tasks[last][:OVERLAP_TASKS]:
+            sampler.execute_one_task(task)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    serial()  # the process's first decodes and encodes pick their algorithms here
+    runs = []
+    for name, fn in (("threaded", threaded), ("serial", serial), ("serial", serial),
+                     ("threaded", threaded)):
+        secs = fn()
+        phases = {k: v["total_s"] for k, v in report(reset=True).items()}
+        if sampler._tasks_run not in (0, OVERLAP_TASKS) or sampler.grid_t_idx[targets][
+                :, :OVERLAP_TASKS].min() != 3 * pipe.sliding.steps_per_alt:
+            raise AssertionError(f"overlap {name}: {sampler._tasks_run} tasks, t_idx "
+                                 f"{sampler.grid_t_idx[targets][:, :OVERLAP_TASKS]}")
+        runs.append({"path": name, "s": secs, "s_per_task": secs / OVERLAP_TASKS,
+                     "phases": phases})
+        log(f"overlap: {name} {OVERLAP_TASKS} tasks {secs:.2f} s ({secs / OVERLAP_TASKS:.3f} s a "
+            f"task), phases {phases}")
+    mean = {p: sum(r["s"] for r in runs if r["path"] == p) / 2 for p in ("threaded", "serial")}
+    res = {"tasks": OVERLAP_TASKS, "runs": runs, "mean_s": mean,
+           "saved_s_per_task": (mean["serial"] - mean["threaded"]) / OVERLAP_TASKS}
+    log(f"overlap: {json.dumps(res)}")
+    del sampler, pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_demo4d_prod(work: Path) -> dict:
+    """Production demo_4d (48 cameras x 150 frames at 1024^2) through the
+    prefix script: a session of 2 tasks, then a fresh call that resumes and
+    runs 1 more. Then production temporal tasks (300 rows, 75 windows,
+    streamed in chunks of 5): a state claiming round 1 done is written from
+    the spatial sessions' grid (targets at the end of round 1; the other
+    latents are noise, which changes no work) and a session of
+    ``PROD_TEMPORAL_TASKS`` tasks resumes from it: the second task's load
+    runs on the IO thread and the first's input-row writes on the saver
+    thread, each beside a denoise."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch import demo4d_prefix
+    from diffuman4d_torch.configs.presets import build_config
+    from diffuman4d_torch.io.gridstate import read_state, write_state
+    from diffuman4d_torch.sampling import loader, pipeline as pp
+
+    scene, out, tem_out = work / "prod_scene", work / "prod_out", work / "prod_tem_out"
+
+    def session(out_dir, budget):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = demo4d_prefix.main(["--scene", str(scene), "--out", str(out_dir),
+                                     "--task-budget", str(budget)])
+        lines = buf.getvalue().strip().splitlines()
+        log("\n".join(line for line in lines[:-1] if not line.startswith("{")))
+        torch.cuda.empty_cache()
+        return {"rc": rc, **json.loads(lines[-1])}
+
+    runs = [session(out, 2), session(out, 1)]
+    meta, data = read_state(str(out / "state" / "grid_state.d4d"))
+    state_gb = (out / "state" / "grid_state.d4d").stat().st_size / 1e9
+
+    cfg = build_config(["exp=demo_4d"])
+    steps = loader.sliding_from(cfg.sampler).steps_per_alt
+    t_idx = np.array(data["t_idx"])
+    targets = [i for i in range(t_idx.shape[0]) if i not in cfg.sampler.input_spa_labels]
+    t_idx[targets] = steps
+    write_state(str(tem_out / "state" / "grid_state.d4d"),
+                {**meta, "completed_rounds": 1, "tasks_done_in_round": 0},
+                {"latents": np.array(data["latents"]), "t_idx": t_idx})
+    del data
+    chunks, calls = [], []
+
+    def recording_chunk(chunk_cond):
+        def run(self, cond, wchunk, pad_u):
+            chunks.append((len(wchunk), int(pad_u), int(np.unique(wchunk).size)))
+            return chunk_cond(self, cond, wchunk, pad_u)
+        return run
+
+    with _patched(pp.Diffuman4DPipeline, "_chunk_cond", recording_chunk), \
+            _patched(pp.Diffuman4DPipeline, "sliding_denoise",
+                     _recording(calls, "sliding_denoise")), \
+            _patched(pp.Diffuman4DPipeline, "prepare_conditions",
+                     _recording(calls, "prepare_conditions")):
+        runs.append(session(tem_out, PROD_TEMPORAL_TASKS))
+    tem_meta, _ = read_state(str(tem_out / "state" / "grid_state.d4d"))
+    temporal = {"by_domain": _by_domain(calls), "chunks": len(chunks),
+                "windows_per_chunk": sorted({c[0] for c in chunks}),
+                "pad_u": sorted({c[1] for c in chunks}),
+                "union_rows": sorted({c[2] for c in chunks}), "state": tem_meta}
+    res = {"runs": runs, "state": meta, "state_gb": state_gb, "temporal": temporal}
+    for r in runs:
+        ph = r["phases"]
+        log(f"demo4d_prod: resumed at {r['resumed_rounds']} + {r['resumed_tasks']}, "
+            f"{r['tasks_run']} tasks in {r['run_s']:.2f} s ({r['s_per_task']:.2f} s a task), "
+            f"save_state d2h {ph['save_state/d2h']['total_s']} s + write "
+            f"{ph['save_state/write']['total_s']} s ({state_gb:.3f} GB), resume "
+            f"{ph.get('resume/load', {}).get('total_s')} s, sampler init "
+            f"{ph['prefix/sampler_init']['total_s']} s, peak {r.get('peak_gb')} GB")
+    log(f"demo4d_prod: temporal task {json.dumps(temporal)}")
+    log(f"demo4d_prod: {json.dumps(res)}")
+    got = [(r["rc"], r["resumed_rounds"], r["resumed_tasks"], r["tasks_run"]) for r in runs]
+    n_tem = temporal["by_domain"].get("temporal", {})
+    n = PROD_TEMPORAL_TASKS
+    if got != [(0, 0, 0, 2), (0, 0, 2, 1), (0, 1, 0, n)] or (
+            meta["completed_rounds"], meta["tasks_done_in_round"]) != (0, 3) or (
+            tem_meta["completed_rounds"], tem_meta["tasks_done_in_round"]) != (1, n) or (
+            n_tem.get("tasks"), n_tem.get("streamed"), n_tem.get("windows")) != (n, n, 75 * n) or (
+            temporal["chunks"], temporal["windows_per_chunk"]) != (15 * n, [5]):
+        raise AssertionError(f"demo4d_prod: runs {got}, states {meta} / {tem_meta}, "
+                             f"temporal task {temporal}")
+    return res
+
+
 def _d64_split(shapes) -> dict:
     """The d = 64 kernel serves two TPU kernels: 3D window attention (the
     CFG pair as batch 2) and per-frame attention (batch 2 L)."""
@@ -1193,9 +1710,10 @@ KERNEL_META = {
                             f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
                             ("slice", "tune")),
     "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn_d512.cu", f"{_FA}:54 (_flash_kernel)",
-                       "flash_fwd_d512", 0, ("cli", "slice")),
+                       "flash_fwd_d512", 0, ("demo4d", "cli", "slice")),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3_hopper.cu",
-                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, ("cli", "slice")),
+                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2,
+                ("demo4d", "cli", "slice")),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
     "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",
@@ -1209,7 +1727,7 @@ KERNEL_META = {
                                       "flash_fwd_single_pass_batched", 0, "tune"),
     "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn_hopper.cu",
                             f"{_FA}:96 (_flash_kernel_v2)", "flash_fwd_two_level", 0,
-                            ("cli", "slice", "tune")),
+                            ("demo4d", "cli", "slice", "tune")),
 }
 
 
@@ -1262,7 +1780,7 @@ def main() -> int:
     if "reference" in phases:
         run("reference_train", phase_reference_train)
         torch.cuda.empty_cache()
-    if {"reference", "slice", "cli", "train", "profile"} & set(phases):
+    if {"reference", "slice", "cli", "demo4d", "train", "profile"} & set(phases):
         from diffuman4d_torch.sampling.loader import build_models
 
         unet, vae = build_models(device="cuda", dtype=torch.bfloat16, seed=0)
@@ -1274,15 +1792,23 @@ def main() -> int:
         if "cli" in phases:
             run("cli", phase_cli, unet, vae, work)
             torch.cuda.empty_cache()
+        if "demo4d" in phases:
+            run("demo4d", phase_demo4d, work)
+            torch.cuda.empty_cache()
         if "train" in phases:  # moves the UNet's weights and puts them back
             run("train", phase_train, unet, vae, work)
         if "profile" in phases:
             run("profile", phase_profile, unet, vae, Path(args.out).parent)
         del unet, vae
         torch.cuda.empty_cache()
+    if "demo4d_prod" in phases:
+        run("demo4d_prod", phase_demo4d_prod, work)
+        torch.cuda.empty_cache()
+    if "overlap" in phases:
+        run("overlap", phase_overlap, work)
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
-        for phase in ("tune", "slice", "cli", "train"):
+        for phase in ("tune", "slice", "cli", "demo4d", "train"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

@@ -3,7 +3,7 @@ reference: inference.py:18-47).
 
 Usage mirrors the JAX package's, so one command line drives both:
 
-    python -m diffuman4d_torch.cli exp=demo_3d data.scene_label=0023_06 \
+    python -m diffuman4d_torch.cli exp=demo_4d data.scene_label=0811_06 \
         data.data_dir=./data/dna_rendering model.model_dir=./models/diffuman4d
 
 Flags ``sampling`` / ``to_nerfstudio`` / ``evaluating`` select the stages
@@ -13,9 +13,14 @@ unless ``device=cpu`` is given. The output directory receives
 ``config_tree.log``, ``job.log``, ``images/{cam}/{frame}.jpg``,
 ``phases.json``, the nerfstudio export (``transforms.json``,
 ``transforms_input.json``, ``export_manifest.json``, ``fmasks/``,
-``images_alpha/``) and, with ``evaluating=true``, ``metrics.json``. The JAX
-CLI's grid state (``state/grid_state.d4d``) is not written yet
-(``ROADMAP.md`` A.3.b).
+``images_alpha/``), the grid state ``state/grid_state.d4d`` (written after
+every round and every 24 tasks; a later call on the same output directory
+resumes from it, and one on a finished directory runs no task and exports
+again), with ``sampler.save_debug_grids=true`` ``grids/*.jpg``, and with
+``evaluating=true`` ``metrics.json``. ``sampler.tasks_per_wave`` > 0 and
+``split_cfg_domains`` values other than ``spatial`` / ``temporal`` are
+refused (``ROADMAP.md`` A.7); schedulers other than DDIM raise where the
+scheduler is built (A.4).
 """
 
 from __future__ import annotations
@@ -37,20 +42,12 @@ def _refuse_unported(cfg: RunConfig) -> None:
     """Options of the JAX CLI the port does not have yet raise, naming the
     ROADMAP item; none is ignored."""
     s = cfg.sampler
-    if s.save_debug_grids:
-        raise NotImplementedError("sampler.save_debug_grids=true is not ported yet "
-                                  "(ROADMAP.md A.3.e)")
     if s.tasks_per_wave:
         raise NotImplementedError("sampler.tasks_per_wave: task waves are not ported yet "
                                   "(ROADMAP.md A.7); the port runs tasks one at a time")
     if unknown := set(s.split_cfg_domains or ()) - {"spatial", "temporal"}:
         raise NotImplementedError(f"sampler.split_cfg_domains {sorted(unknown)}: the port "
                                   f"splits CFG in the 'spatial' and 'temporal' domains only")
-    for state in ("grid_state.d4d", "grid_state.npz"):
-        path = osp.join(s.output_dir, "state", state)
-        if osp.isfile(path):
-            raise NotImplementedError(f"{path}: resuming from a grid state is not ported yet "
-                                      f"(ROADMAP.md A.3.b); use another sampler.output_dir")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -88,14 +85,15 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _run(cfg: RunConfig, device) -> None:
+def build_sampler(cfg: RunConfig, pipeline, target_pixels: bool = True, **sampler_kw):
+    """The dataset and the sampler of ``cfg`` around ``pipeline``, as the
+    CLI builds them; ``sampler_kw`` overrides the sampler's defaults (the
+    JAX CLI's: a checkpoint every round and every 24 tasks).
+    ``target_pixels=False`` skips loading target images, which only the
+    debug grids read (the prefix script's dataset)."""
     from diffuman4d_torch.data.dataset import SpaTemDataset
-    from diffuman4d_torch.sampling.loader import load_pipeline
-    from diffuman4d_torch.sampling.runner import SamplingRunner
     from diffuman4d_torch.sampling.sampler import SlidingIterativeSampler
-    from diffuman4d_torch.utils.tracing import phase, report
 
-    report(reset=True)  # phases.json holds this run only
     dataset = SpaTemDataset(
         data_dir=cfg.data.data_dir,
         camera_path_pat=cfg.data.camera_path_pat,
@@ -106,12 +104,11 @@ def _run(cfg: RunConfig, device) -> None:
         height=cfg.data.height,
         width=cfg.data.width,
         has_gt_target=cfg.data.has_gt_target,
+        target_pixels=target_pixels,
         # generation reads skeletons as uint8 (pipeline._skel_u8)
         skeletons_uint8=True,
     )
-    with phase("cli/load_pipeline"):
-        pipeline = load_pipeline(cfg.model, cfg.sampler, cfg.data, device=device)
-    sampler = SlidingIterativeSampler(
+    return SlidingIterativeSampler(
         dataset,
         pipeline,
         output_dir=cfg.sampler.output_dir,
@@ -121,7 +118,21 @@ def _run(cfg: RunConfig, device) -> None:
         tem_labels=cfg.sampler.tem_labels,
         input_spa_labels=cfg.sampler.input_spa_labels,
         seed=cfg.sampler.seed,
+        save_debug_grids=cfg.sampler.save_debug_grids,
+        **sampler_kw,
     )
+
+
+def _run(cfg: RunConfig, device) -> None:
+    from diffuman4d_torch.sampling.loader import load_pipeline
+    from diffuman4d_torch.sampling.runner import SamplingRunner
+    from diffuman4d_torch.utils.tracing import phase, report
+
+    report(reset=True)  # phases.json holds this run only
+    with phase("cli/load_pipeline"):
+        pipeline = load_pipeline(cfg.model, cfg.sampler, cfg.data, device=device)
+    with phase("cli/build_sampler"):  # grid noise, and the state file if one is there
+        sampler = build_sampler(cfg, pipeline)
     runner = SamplingRunner(sampler)
 
     if cfg.sampling:

@@ -140,8 +140,8 @@ def conv3x3(
         rc = fn(xb.data_ptr(), wt.data_ptr(), bias32.data_ptr(), ptr(sc), ptr(sh), ptr(res),
                 out.data_ptr(), B, H, W, cin, cout, int(silu), stream)
     cuda_build.check(rc, "conv3x3_fwd")
-    conv3x3.launches += 1
-    conv3x3.shapes[(B, H, W, cin, cout, sc is not None, bool(silu), res is not None)] += 1
+    cuda_build.count_launch(conv3x3, (B, H, W, cin, cout, sc is not None, bool(silu),
+                                      res is not None))
     return out.to(x.dtype)
 
 

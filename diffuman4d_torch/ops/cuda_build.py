@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -114,3 +115,15 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a kernel's C entry."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, key: tuple) -> None:
+    """Add one launch to ``wrapper.launches`` and to ``wrapper.shapes[key]``.
+    The sampler launches from its main and its saver thread, so the two
+    read-modify-writes are taken under one lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.shapes[key] += 1

@@ -121,8 +121,7 @@ def _launch(wrapper, q, k, v, fn_name: str, c_args: tuple, blocks: tuple = (),
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq, k.shape[1],
                 *c_args, stream)
     cuda_build.check(rc, fn_name)
-    wrapper.launches += 1
-    wrapper.shapes[(B, Sq, k.shape[1], H, *blocks)] += 1
+    cuda_build.count_launch(wrapper, (B, Sq, k.shape[1], H, *blocks))
     return out
 
 

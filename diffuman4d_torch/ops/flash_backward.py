@@ -141,8 +141,7 @@ def _call(wrapper, lib: str, fn_name: str, ref: torch.Tensor, sizes, *tensors):
         rc = fn(*(t.data_ptr() for t in tensors), *sizes, stream)
     cuda_build.check(rc, fn_name)
     B, H, Sq, Sk = sizes
-    wrapper.launches += 1
-    wrapper.shapes[(B, Sq, Sk, H)] += 1
+    cuda_build.count_launch(wrapper, (B, Sq, Sk, H))
 
 
 def flash_fwd_lse(qs, k, v):

@@ -123,9 +123,11 @@ def load_pipeline(
     sampler_cfg: SamplerConfig,
     data_cfg: DataConfig,
     device: torch.device | str = "cuda",
+    **pipeline_kw,
 ) -> Diffuman4DPipeline:
     """The pipeline of ``model_cfg`` on ``device`` (the card unless the
-    caller asks for the CPU).
+    caller asks for the CPU); ``pipeline_kw`` (the condition-cache budgets)
+    goes to :class:`Diffuman4DPipeline`.
 
     Weights are stored at ``model_cfg.param_dtype`` and computed at
     ``model_cfg.dtype``, as in the JAX package: they are rounded to the
@@ -163,4 +165,4 @@ def load_pipeline(
                                  seed=sampler_cfg.seed, attn_implementation=attn)
         unet, vae = _finish(unet, dtype), _finish(vae, dtype)
     return Diffuman4DPipeline(unet, vae, scheduler, sliding=sliding,
-                              image_size=data_cfg.height, device=device)
+                              image_size=data_cfg.height, device=device, **pipeline_kw)

@@ -3,11 +3,26 @@ decode (counterpart of ``diffuman4d_tpu/sampling/pipeline.py``).
 
 * :meth:`Diffuman4DPipeline.prepare_conditions` -- VAE-encode the input
   (conditional) rows only, Plücker rays at latent resolution, pose features
-  for every row plus the constant black-skeleton negative.
+  plus the constant black-skeleton negative. Conditional latents, uint8
+  skeleton rows and pose features are kept per frame in byte-budgeted LRU
+  caches (``cond_cache``, ``*_cache_mb``), so a frame revisited by a later
+  task is not encoded again. ``pose_cache_mb`` is also the materialise
+  threshold: a task whose pose features for every row fit it gets them
+  once; a larger task (demo_4d's 300-row temporal tasks) carries its uint8
+  skeleton rows instead, and :meth:`sliding_denoise` computes the features
+  per window chunk for the chunk's rows.
 * :meth:`Diffuman4DPipeline.sliding_denoise` -- a Python loop over the
-  precomputed window matrix; each window runs ``num_denoising_steps`` CFG
-  denoising steps with the vectorized per-latent scheduler step.
+  precomputed window matrix in chunks of ``window_chunk`` windows; each
+  window runs ``num_denoising_steps`` CFG denoising steps with the
+  vectorized per-latent scheduler step.
 * :meth:`Diffuman4DPipeline.decode` -- micro-batched VAE decode to uint8.
+
+The VAE and the pose encoder always run on micro-batches of exactly
+``vae_batch`` (``vae_decode_batch``) rows, the last one padded, and a
+streamed chunk's rows are padded to one count per task, as in the JAX
+package: a row's value then does not depend on which rows share its batch,
+so cache hits, streamed chunks and resumed runs equal recomputation bit for
+bit (on the card too, where another batch size may pick another algorithm).
 
 CFG follows the JAX package: the negative half replaces conditional-row
 latents with ones (white), Plücker with zeros and pose features with the
@@ -16,7 +31,9 @@ black-skeleton feature; the UNet input channel order is
 
 Randomness has two sources, both overridable so tests can inject the JAX
 package's numbers: :meth:`init_noise` (one generator per grid cell) and
-:meth:`posterior_noise` (one generator per conditional frame).
+:meth:`posterior_noise` (one generator per conditional frame). The
+posterior draw is a function of the frame's label alone, with the caches
+on or off.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ from diffuman4d_torch.data.rays import calc_plucker_embeds_lowres
 from diffuman4d_torch.models.unet import UNetMultiviewCondition
 from diffuman4d_torch.models.vae import AutoencoderKL
 from diffuman4d_torch.schedulers.diffusion import Scheduler
+from diffuman4d_torch.utils.arrays import ByteLRU
 
 
 def _skel_u8(sk: np.ndarray) -> np.ndarray:
@@ -92,6 +110,11 @@ class Diffuman4DPipeline:
         image_size: int = 1024,
         vae_batch: int = 4,
         vae_decode_batch: int | None = None,
+        window_chunk: int | None = 8,
+        cond_cache: bool = True,
+        skel_cache_mb: int = 3072,
+        pix_cache_mb: int = 512,
+        pose_cache_mb: int = 1536,
         cond_seed: int = 0,
         device: torch.device | str | None = None,
     ):
@@ -104,8 +127,25 @@ class Diffuman4DPipeline:
         self.latent_channels = vae.config.latent_channels
         self.vae_batch = vae_batch
         self.vae_decode_batch = vae_decode_batch or max(1, vae_batch // 2)
+        # windows per chunk of a streamed task (its row union is what one
+        # chunk's pose features cover)
+        self.window_chunk = window_chunk
         self.cond_seed = cond_seed
         self.scheduler = scheduler.set_timesteps(sliding.total_steps, self.device)
+        # per-frame device caches, keyed by the row label; the same budgets
+        # as the JAX package's, so the same tasks stream there and here
+        self.cond_cache = cond_cache
+        self._skel_cache = ByteLRU(skel_cache_mb << 20)
+        self._pix_cache = ByteLRU(pix_cache_mb << 20)
+        self._pose_cache = ByteLRU(pose_cache_mb << 20)
+        self._neg_pose = None
+
+    def clear_condition_caches(self) -> None:
+        """Drop every per-frame condition cache (skeletons, conditional
+        latents, pose features) and the black-skeleton feature."""
+        self._skel_cache.clear()
+        self._pix_cache.clear()
+        self._pose_cache.clear()
         self._neg_pose = None
 
     @property
@@ -136,42 +176,113 @@ class Diffuman4DPipeline:
         return torch.stack(rows).to(self.device)
 
     # -- conditions ----------------------------------------------------
+    @staticmethod
+    def _fixed_chunks(x: torch.Tensor, b: int):
+        """Micro-batches of exactly ``b`` rows (the last padded with zeros)
+        and the count of real rows in each."""
+        n = x.shape[0]
+        for i in range(0, n, b):
+            c = x[i : i + b]
+            if c.shape[0] < b:
+                c = torch.cat([c, c.new_zeros((b - c.shape[0],) + tuple(c.shape[1:]))])
+            yield c, min(b, n - i)
+
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device, self.dtype)
+
+    def _skel_norm(self, u8: torch.Tensor) -> torch.Tensor:
+        """uint8 skeleton rows on the device -> [-1, 1] in the model dtype."""
+        return (u8.float() / 127.5 - 1.0).to(self.dtype)
 
     def encode_images(self, images: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """VAE-encode (N, H, W, 3) in micro-batches of ``vae_batch`` with the
         given posterior noise (N, h, w, 4)."""
+        b = self.vae_batch
         outs = []
-        for i in range(0, images.shape[0], self.vae_batch):
-            mean, logvar = self.vae.moments(images[i : i + self.vae_batch])
-            outs.append(self.vae.sample_latents(mean, logvar, noise[i : i + self.vae_batch]))
+        for (x, m), (nz, _) in zip(self._fixed_chunks(images, b), self._fixed_chunks(noise, b)):
+            mean, logvar = self.vae.moments(x)
+            outs.append(self.vae.sample_latents(mean, logvar, nz)[:m])
         return torch.cat(outs).to(self.dtype)
 
-    def _pose_from_skel(self, skel_u8: np.ndarray) -> torch.Tensor:
-        outs = []
-        for i in range(0, skel_u8.shape[0], self.vae_batch):
-            u8 = torch.from_numpy(np.ascontiguousarray(skel_u8[i : i + self.vae_batch]))
-            sk = (u8.to(self.device).float() / 127.5 - 1.0).to(self.dtype)
-            outs.append(self.unet.pose_encoder(sk))
-        return torch.cat(outs)
+    def _pose_from_skel(self, skel_norm: torch.Tensor) -> torch.Tensor:
+        """Pose-encoder forward over a normalised skeleton batch, in
+        micro-batches of ``vae_batch``."""
+        outs = [self.unet.pose_encoder(c)[:m]
+                for c, m in self._fixed_chunks(skel_norm, self.vae_batch)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _neg_pose_feature(self, skel_shape) -> torch.Tensor:
-        """Pose feature of a black skeleton, the CFG negative (computed once)."""
+        """Pose feature of a black skeleton, the CFG negative (computed once
+        per cache generation)."""
         if self._neg_pose is None:
             black = -torch.ones((1,) + tuple(skel_shape), dtype=self.dtype, device=self.device)
-            self._neg_pose = self.unet.pose_encoder(black)
+            self._neg_pose = self._pose_from_skel(black)
         return self._neg_pose
 
-    def pose_features(self, skeletons: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-row pose features and the black-skeleton negative."""
-        return (self._pose_from_skel(_skel_u8(skeletons)),
-                self._neg_pose_feature(skeletons.shape[1:]))
+    def _pose_feature_bytes(self) -> int:
+        """Per-row pose-feature size: (latent, latent, ch0) in model dtype."""
+        ch0 = self.unet.config.block_out_channels[0]
+        return self.latent_size * self.latent_size * ch0 * self.dtype.itemsize
+
+    def _cond_latents_cached(self, sample, cond_rows) -> torch.Tensor:
+        """Conditional latents of ``cond_rows`` through the per-frame cache:
+        misses are encoded together (posterior noise per label), hits are
+        the stored rows."""
+        labels = sample.labels
+        # hits first: inserting the misses may evict this task's own rows
+        have = {labels[i]: self._pix_cache.value(labels[i])
+                for i in cond_rows if labels[i] in self._pix_cache}
+        miss = [i for i in cond_rows if labels[i] not in have]
+        if miss:
+            z = self.encode_images(self._to_device(sample.pixel_values[np.asarray(miss)]),
+                                   self.posterior_noise([labels[i] for i in miss]))
+            for j, i in enumerate(miss):
+                row = z[j].clone()  # owns its storage: the budget counts it alone
+                have[labels[i]] = row
+                self._pix_cache.put(labels[i], row, row.nbytes)
+        return torch.stack([have[labels[i]] for i in cond_rows])
+
+    def _skel_rows(self, sample, indices=None) -> list[torch.Tensor]:
+        """Per-frame device-resident uint8 skeleton rows (LRU-cached), as a
+        list: a cache entry and a live task share one tensor."""
+        idx = range(len(sample.labels)) if indices is None else indices
+        rows = []
+        for i in idx:
+            lb = sample.labels[i]
+            a = self._skel_cache.value(lb)
+            if a is None:
+                u8 = _skel_u8(sample.skeletons[i])
+                a = torch.from_numpy(np.ascontiguousarray(u8)).to(self.device)
+                self._skel_cache.put(lb, a, u8.nbytes)
+            rows.append(a)
+        return rows
+
+    def _skeletons_to_device(self, sample, indices=None) -> torch.Tensor:
+        """Stacked, normalised skeleton rows (model dtype) from the cache."""
+        return self._skel_norm(torch.stack(self._skel_rows(sample, indices)))
+
+    def _pose_features_lru(self, sample) -> torch.Tensor:
+        """Pose features of every row through the per-frame cache: repeat
+        visits of a frame skip the skeleton upload and the encoder."""
+        labels = sample.labels
+        # hits first: inserting the misses may evict this task's own rows
+        have = {lb: self._pose_cache.value(lb) for lb in labels if lb in self._pose_cache}
+        miss = [i for i, lb in enumerate(labels) if lb not in have]
+        if miss:
+            fm = self._pose_from_skel(self._skeletons_to_device(sample, miss))
+            for j, i in enumerate(miss):
+                row = fm[j].clone()
+                have[labels[i]] = row
+                self._pose_cache.put(labels[i], row, row.nbytes)
+        return torch.stack([have[lb] for lb in labels])
 
     @torch.no_grad()
     def prepare_conditions(self, sample) -> dict:
         """Host ``Sample`` -> device condition dict. Only conditional rows
-        are VAE-encoded; other rows' latents are zeros (never consumed)."""
+        are VAE-encoded; other rows' latents are zeros (never consumed).
+        Pose features come as ``pose_features`` when every row's fit
+        ``pose_cache_mb``, else as the uint8 ``skel_rows`` that
+        :meth:`sliding_denoise` streams."""
         is_cond = sample.cond_masks == 0.0
         n = sample.pixel_values.shape[0]
         cond_rows = np.nonzero(is_cond)[0]
@@ -180,8 +291,11 @@ class Diffuman4DPipeline:
             dtype=self.dtype, device=self.device,
         )
         if cond_rows.size:
-            noise = self.posterior_noise([sample.labels[i] for i in cond_rows])
-            z = self.encode_images(self._to_device(sample.pixel_values[cond_rows]), noise)
+            if self.cond_cache:
+                z = self._cond_latents_cached(sample, list(cond_rows))
+            else:
+                z = self.encode_images(self._to_device(sample.pixel_values[cond_rows]),
+                                       self.posterior_noise([sample.labels[i] for i in cond_rows]))
             pix_latents[torch.from_numpy(cond_rows).to(self.device)] = z
         Ks = torch.from_numpy(np.asarray(sample.Ks, np.float32)).to(self.device)
         poses = torch.from_numpy(np.asarray(sample.poses, np.float32)).to(self.device)
@@ -193,11 +307,61 @@ class Diffuman4DPipeline:
             "plucker": plucker,
             "is_cond": torch.from_numpy(is_cond).to(self.device),
         }
-        if self.unet.config.enable_pose_encoder:
-            cond["pose_features"], cond["neg_pose_feature"] = self.pose_features(sample.skeletons)
+        if not self.unet.config.enable_pose_encoder:
+            raise NotImplementedError("the skeleton-latent (no pose encoder) path is not ported "
+                                      "yet")
+        fits = n * self._pose_feature_bytes() <= self._pose_cache.budget
+        if fits and self.cond_cache:
+            cond["pose_features"] = self._pose_features_lru(sample)
+        elif fits:
+            u8 = torch.from_numpy(np.ascontiguousarray(_skel_u8(sample.skeletons)))
+            cond["pose_features"] = self._pose_from_skel(self._skel_norm(u8.to(self.device)))
+        elif self.cond_cache:
+            cond["skel_rows"] = self._skel_rows(sample)
         else:
-            raise NotImplementedError("the skeleton-latent (no pose encoder) path is not ported yet")
+            cond["skel_rows"] = [torch.from_numpy(_skel_u8(sk)).to(self.device)
+                                 for sk in sample.skeletons]
+        cond["neg_pose_feature"] = self._neg_pose_feature(sample.skeletons.shape[1:])
         return cond
+
+    # -- per-chunk condition streaming ---------------------------------
+    def _window_chunk_size(self, n_windows: int) -> int:
+        """Largest chunk <= ``window_chunk`` that divides ``n_windows``, so
+        every chunk has one row count."""
+        c = min(self.window_chunk or n_windows, n_windows)
+        while n_windows % c:
+            c -= 1
+        return c
+
+    @staticmethod
+    def _chunk_rows(wchunk: np.ndarray, pad_u: int) -> tuple[np.ndarray, np.ndarray]:
+        """Unique rows used by a chunk of windows, and the windows renumbered
+        into that row set. The union is padded to ``pad_u`` by repeating its
+        last row (pad rows are never indexed)."""
+        U = np.unique(wchunk)
+        wc = np.searchsorted(U, wchunk).astype(wchunk.dtype)
+        if pad_u > U.size:
+            U = np.concatenate([U, np.full(pad_u - U.size, U[-1], U.dtype)])
+        return U, wc
+
+    @staticmethod
+    def _chunk_pad_u(windows: np.ndarray, c: int) -> int:
+        return max(np.unique(windows[i : i + c]).size for i in range(0, windows.shape[0], c))
+
+    _DENSE_COND_KEYS = ("pix_latents", "plucker", "is_cond")
+
+    def _chunk_cond(self, cond: dict, wchunk: np.ndarray, pad_u: int) -> tuple[dict, np.ndarray]:
+        """A streamed task's conditions for one chunk of windows: the dense
+        per-row keys gathered to the chunk's row union, pose features
+        computed for those rows."""
+        U, wc = self._chunk_rows(np.asarray(wchunk), pad_u)
+        Ut = torch.from_numpy(U.astype(np.int64)).to(self.device)
+        out = {k: cond[k][Ut] for k in self._DENSE_COND_KEYS}
+        rows = cond["skel_rows"]
+        out["pose_features"] = self._pose_from_skel(
+            self._skel_norm(torch.stack([rows[i] for i in U])))
+        out["neg_pose_feature"] = cond["neg_pose_feature"]
+        return out, wc
 
     # -- denoising -----------------------------------------------------
     def _denoise_step(self, cond_w: dict, latents_w: torch.Tensor, t_idx_w: torch.Tensor,
@@ -266,16 +430,25 @@ class Diffuman4DPipeline:
 
         latents = latents.clone()
         t_dev = torch.from_numpy(t_idx.astype(np.int64)).to(self.device)
-        per_row = [k for k in cond if k != "neg_pose_feature"]
-        for w in np.asarray(windows):
-            wi = torch.from_numpy(w.astype(np.int64)).to(self.device)
-            cond_w = {k: cond[k][wi] for k in per_row}
-            cond_w["neg_pose_feature"] = cond["neg_pose_feature"]
-            lat_w, ti_w = latents[wi], t_dev[wi]
-            for _ in range(self.sliding.num_denoising_steps):
-                lat_w, ti_w = self._denoise_step(cond_w, lat_w, ti_w, domain)
-            latents[wi] = lat_w
-            t_dev[wi] = ti_w
+        windows = np.asarray(windows)
+        c = self._window_chunk_size(windows.shape[0])
+        stream = "skel_rows" in cond
+        pad_u = self._chunk_pad_u(windows, c) if stream else 0
+        for i in range(0, windows.shape[0], c):
+            wchunk = windows[i : i + c]
+            # a streamed chunk's conditions have their own row numbering
+            cond_c, wc = self._chunk_cond(cond, wchunk, pad_u) if stream else (cond, wchunk)
+            per_row = [k for k in cond_c if k != "neg_pose_feature"]
+            for w, w_cond in zip(wchunk, wc):
+                wi = torch.from_numpy(w.astype(np.int64)).to(self.device)
+                ci = torch.from_numpy(w_cond.astype(np.int64)).to(self.device)
+                cond_w = {k: cond_c[k][ci] for k in per_row}
+                cond_w["neg_pose_feature"] = cond_c["neg_pose_feature"]
+                lat_w, ti_w = latents[wi], t_dev[wi]
+                for _ in range(self.sliding.num_denoising_steps):
+                    lat_w, ti_w = self._denoise_step(cond_w, lat_w, ti_w, domain)
+                latents[wi] = lat_w
+                t_dev[wi] = ti_w
 
         t_after = t_dev.cpu().numpy().astype(np.int32)
         if (t_after[~is_cond] != expected_end).any():
@@ -298,8 +471,7 @@ class Diffuman4DPipeline:
         """Latents -> uint8 images (N, H, W, 3), micro-batched."""
         if latents.shape[0] == 0:
             return np.empty((0, self.image_size, self.image_size, 3), np.uint8)
-        b = self.vae_decode_batch
         return np.concatenate([
-            self._decode_u8_impl(latents[i : i + b]).cpu().numpy()
-            for i in range(0, latents.shape[0], b)
+            self._decode_u8_impl(c)[:m].cpu().numpy()
+            for c, m in self._fixed_chunks(latents, self.vae_decode_batch)
         ])

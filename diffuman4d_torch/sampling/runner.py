@@ -4,10 +4,10 @@ src/samplers/sampling_runner.py:14-84).
 
 The public surface is the JAX package's: ``inference()`` /
 ``evaluate()`` / ``to_nerfstudio()``. ``inference`` runs the sampler's
-serial path, one task after another on the pipeline's device. The JAX
-runner's task waves over a device mesh and its context-parallel window
-steps (its ``runner.py:37-63``) are not ported yet (``ROADMAP.md`` A.3.e
-and A.7).
+serial path, one task after another on the pipeline's device, resuming from
+the output directory's grid state. The JAX runner's task waves over a device
+mesh and its context-parallel window steps (its ``runner.py:37-63``) are not
+ported yet (``ROADMAP.md`` A.7).
 """
 
 from __future__ import annotations

@@ -4,24 +4,55 @@
 Owns the camera x frame latent grid -- one device tensor (S, T, h, w, 4)
 plus an int32 (S, T) timestep-index grid on the host -- and runs the
 alternation rounds' tasks one after another. Initial noise is seeded per
-grid cell, so results do not depend on task order. Each task's stages are
-timed as ``task/*`` phases (``utils/tracing.py``). Task waves over several
-devices (``ROADMAP.md`` A.7), grid-state resume and run budgets (A.3.b) and
-debug grids (A.3.e) are not ported yet.
+grid cell, so results do not depend on task order.
+
+Grid state: after every round and every ``checkpoint_every_tasks`` tasks the
+grid is written to ``state/grid_state.d4d`` (``io/gridstate.py``; a bf16
+grid as its uint16 bits), and a new sampler on the same output directory
+always resumes from it: rounds already done are skipped, and so are the first
+``tasks_done_in_round`` tasks of the next (tasks of a round touch disjoint
+cells, so a prefix count describes the state). A state of another seed or
+grid shape is ignored. ``task_budget`` / ``time_budget_s`` stop a run
+cleanly after that many tasks or past that many seconds, with the state
+saved. The next task's sample loads on one IO thread while the current one
+denoises, and finished rows are decoded and written on one saver thread;
+every checkpoint and grid check first waits for the saver, so a state never
+claims a task whose images are not on disk. The condition caches are
+cleared at every domain switch. The JAX sampler's ``resume=False``,
+``checkpoint_rounds=False`` and ``save_crop_params`` are not ported: no
+entry point sets them (``ROADMAP.md`` A.3.e).
+
+Each task's stages are timed as ``task/*`` phases (``utils/tracing.py``):
+``load_sample`` and ``decode_save`` on their threads, overlapping the main
+thread's ``prepare_conditions`` and ``sliding_denoise``, so the phases sum to
+more than the wall time; the decode runs on the card's one stream, so its
+device time also lands inside the main thread's next synchronised phase.
+Task waves over several devices (``ROADMAP.md`` A.7) are not ported.
 """
 
 from __future__ import annotations
 
+import logging
+import os.path as osp
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from diffuman4d_torch.sampling.outputs import check_sampling_results, save_final_images
-from diffuman4d_torch.sampling.windows import build_windows
 from diffuman4d_torch.data import Sample, SpaTemDataset
+from diffuman4d_torch.io.gridstate import read_state, write_state
+from diffuman4d_torch.sampling.outputs import (
+    check_sampling_results,
+    save_debug_grid,
+    save_final_images,
+)
 from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+from diffuman4d_torch.sampling.windows import build_windows
 from diffuman4d_torch.utils.tracing import phase
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -29,6 +60,13 @@ class Task:
     alt: int  # 1-based alternation round
     domain: str  # "spatial" | "temporal"
     domain_label: str  # frame label (spatial) or target camera label (temporal)
+
+
+def _to_host_bits(x: torch.Tensor) -> np.ndarray:
+    """Device tensor -> host numpy, bf16 as its uint16 bit patterns."""
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).cpu().numpy().view(np.uint16)
+    return x.cpu().numpy()
 
 
 class SlidingIterativeSampler:
@@ -43,11 +81,29 @@ class SlidingIterativeSampler:
         tem_labels: list[int] | None = None,
         input_spa_labels: list[int] = (1, 13, 25, 37),
         seed: int = 0,
+        save_debug_grids: bool = False,
+        checkpoint_every_tasks: int = 24,
+        task_budget: int | None = None,
+        time_budget_s: float | None = None,
     ):
+        # task_budget: stop cleanly after this many tasks of this call, with
+        # an intra-round state saved; time_budget_s: stop after the first
+        # task that ends past this many seconds from the start of
+        # execute_tasks. checkpoint_every_tasks: intra-round state cadence
+        # (0: round ends only).
+        self.task_budget = task_budget
+        self.time_budget_s = time_budget_s
+        self._exec_t0: float | None = None
+        self._tasks_run = 0
+        self.checkpoint_every_tasks = checkpoint_every_tasks
         self.dataset = dataset
         self.pipeline = pipeline
         self.output_dir = output_dir
         self.seed = seed
+        if save_debug_grids and not getattr(dataset, "target_pixels", True):
+            raise ValueError("save_debug_grids needs GT target pixels; construct the dataset "
+                             "with target_pixels=True")
+        self.save_debug_grids = save_debug_grids
         cfg = pipeline.sliding
 
         if spa_labels is not None:
@@ -82,7 +138,96 @@ class SlidingIterativeSampler:
         self.grid_t_idx = np.zeros((S, T), np.int32)
         self.all_tasks = self.prepare_tasks()
         self._completed_rounds = 0
+        self._resume_tasks_done = 0
+        self._saver: ThreadPoolExecutor | None = None
+        self._save_futs: list = []
+        self._try_resume()
 
+    # -- grid state --------------------------------------------------------
+    @property
+    def _state_path(self) -> str:
+        return osp.join(self.output_dir, "state", "grid_state.d4d")
+
+    @property
+    def _legacy_state_path(self) -> str:
+        return osp.join(self.output_dir, "state", "grid_state.npz")
+
+    def _budget_out(self) -> bool:
+        """True when this call should stop after the current task:
+        ``task_budget`` tasks run, or the clock past ``time_budget_s``."""
+        if self.task_budget is not None and self._tasks_run >= self.task_budget:
+            return True
+        return (self.time_budget_s is not None and self._exec_t0 is not None
+                and time.perf_counter() - self._exec_t0 > self.time_budget_s)
+
+    def save_state(self, tasks_done: int = 0) -> None:
+        """Write the grid. ``tasks_done`` > 0 marks an intra-round state:
+        that many tasks of round ``_completed_rounds`` (the 0-based next
+        round) are already in the grid, and a resume skips them."""
+        with phase("save_state/d2h", sync=False):
+            arrays = {"latents": _to_host_bits(self.grid_latents)}
+        arrays["t_idx"] = np.ascontiguousarray(self.grid_t_idx)
+        meta = {
+            "seed": self.seed,
+            "completed_rounds": int(self._completed_rounds),
+            "tasks_done_in_round": int(tasks_done),
+            "bf16_bits": ["latents"] if self.grid_latents.dtype == torch.bfloat16 else [],
+        }
+        with phase("save_state/write", sync=False):
+            write_state(self._state_path, meta, arrays)
+
+    def _try_resume(self) -> bool:
+        if osp.isfile(self._state_path):
+            load = self._resume_from_d4d
+        elif osp.isfile(self._legacy_state_path):
+            load = self._resume_from_npz
+        else:
+            return False
+        with phase("resume/load", sync=False):  # the upload is a blocking copy
+            return load()
+
+    def _resumed(self, completed_rounds: int, tasks_done: int) -> bool:
+        self._completed_rounds = completed_rounds
+        self._resume_tasks_done = tasks_done
+        print(f"[sampler] resumed after round {completed_rounds}"
+              + (f" + {tasks_done} tasks" if tasks_done else ""), flush=True)
+        return True
+
+    def _mismatched(self, seed: int, shape) -> bool:
+        if seed != self.seed or tuple(shape) != tuple(self.grid_latents.shape):
+            print("[sampler] found grid state with mismatched seed/shape -- ignoring", flush=True)
+            return True
+        return False
+
+    def _resume_from_d4d(self) -> bool:
+        meta, data = read_state(self._state_path)
+        if self._mismatched(int(meta["seed"]), data["latents"].shape):
+            return False
+        # a state's aux_* arrays (multistep history) are not read: the grid
+        # carries none, only DDIM is ported
+        lat = np.array(data["latents"])  # a writable host copy of the memmap
+        dev, dtype = self.grid_latents.device, self.grid_latents.dtype
+        if "latents" in meta.get("bf16_bits", []):
+            grid = torch.from_numpy(lat.view(np.int16)).to(dev).view(torch.bfloat16)
+        else:
+            grid = torch.from_numpy(lat).to(dev)
+        self.grid_latents = grid.to(dtype)
+        self.grid_t_idx = np.array(data["t_idx"], np.int32)
+        return self._resumed(int(meta["completed_rounds"]),
+                             int(meta.get("tasks_done_in_round", 0)))
+
+    def _resume_from_npz(self) -> bool:
+        """Legacy ``np.savez`` states (the JAX package's older runs)."""
+        data = np.load(self._legacy_state_path)
+        if self._mismatched(int(data["seed"]), data["latents"].shape):
+            return False
+        self.grid_latents = torch.from_numpy(np.array(data["latents"])).to(
+            self.grid_latents.device, self.grid_latents.dtype)
+        self.grid_t_idx = data["t_idx"].astype(np.int32)
+        tasks_done = int(data["tasks_done_in_round"]) if "tasks_done_in_round" in data.files else 0
+        return self._resumed(int(data["completed_rounds"]), tasks_done)
+
+    # ----------------------------------------------------------------------
     def prepare_tasks(self) -> list[list[Task]]:
         """Round i alternates spatial / temporal."""
         rounds = self.pipeline.sliding.alternation_rounds
@@ -116,6 +261,10 @@ class SlidingIterativeSampler:
             sample.cond_masks = cm
         return sample
 
+    def _load_timed(self, task: Task) -> Sample:
+        with phase("task/load_sample", sync=False):  # host only: no device sync
+            return self.load_sample(task)
+
     def _windows_for(self, task: Task, n_rows: int) -> np.ndarray:
         cfg = self.pipeline.sliding
         if task.domain == "spatial":
@@ -129,10 +278,10 @@ class SlidingIterativeSampler:
         return build_windows(targets, inputs, task.domain, cfg.window_size, cfg.sliding_stride,
                              cfg.sliding_shift, cfg.bidirectional)
 
-    def execute_one_task(self, task: Task, sample: Sample | None = None) -> None:
+    def execute_one_task(self, task: Task, sample: Sample | None = None,
+                         save_async: bool = False) -> None:
         if sample is None:
-            with phase("task/load_sample"):
-                sample = self.load_sample(task)
+            sample = self._load_timed(task)
         spa, tem = self._grid_cells(sample.labels)
         with phase("task/prepare_conditions"):
             cond = self.pipeline.prepare_conditions(sample)
@@ -145,25 +294,62 @@ class SlidingIterativeSampler:
         with phase("task/sliding_denoise"):
             latents, t_idx = self.pipeline.sliding_denoise(cond, latents, t_idx, windows,
                                                            task.domain)
+        del cond
         self.grid_latents[spa_t, tem_t] = latents
         self.grid_t_idx[spa, tem] = t_idx
-        with phase("task/decode_save"):
-            self._save_task_outputs(sample, latents, t_idx)
+        if save_async and self._saver is not None:
+            # decode + JPEG writes overlap the next task's denoise; joined by
+            # _flush_saves before any checkpoint or grid check
+            self._save_futs.append(
+                self._saver.submit(self._save_task_outputs, task, sample, latents, t_idx))
+        else:
+            self._save_task_outputs(task, sample, latents, t_idx)
 
-    def _save_task_outputs(self, sample: Sample, latents: torch.Tensor, t_idx: np.ndarray) -> None:
+    def _flush_saves(self) -> None:
+        """Join pending saves, re-raising the first failure."""
+        futs, self._save_futs = self._save_futs, []
+        for f in futs:
+            f.result()
+
+    @torch.no_grad()  # no_grad is thread-local: the saver thread needs its own
+    def _save_task_outputs(self, task: Task, sample: Sample, latents: torch.Tensor,
+                           t_idx: np.ndarray) -> None:
         """Decode and write the fully denoised rows; input rows are written
-        as their ground-truth pixels."""
-        done = t_idx == self.pipeline.sliding.total_steps
-        if done.any():
-            rows = np.nonzero(done)[0]
-            images = self.pipeline.decode(latents[torch.from_numpy(rows).to(latents.device)])
-            save_final_images(images, [sample.labels[i] for i in rows],
-                              [sample.crops[i] for i in rows], self.output_dir)
-        inp = np.nonzero(sample.cond_masks == 0.0)[0]
-        if inp.size:
-            save_final_images(sample.pixel_values[inp] * 0.5 + 0.5,
-                              [sample.labels[i] for i in inp],
-                              [sample.crops[i] for i in inp], self.output_dir)
+        as their ground-truth pixels; optionally the task's debug grid."""
+        # no device synchronise: the decode's copy to the host waits for its
+        # own work, a synchronise would wait for the main thread's as well
+        with phase("task/decode_save", sync=False):
+            done = t_idx == self.pipeline.sliding.total_steps
+            if done.any():
+                rows = np.nonzero(done)[0]
+                images = self.pipeline.decode(latents[torch.from_numpy(rows).to(latents.device)])
+                save_final_images(images, [sample.labels[i] for i in rows],
+                                  [sample.crops[i] for i in rows], self.output_dir)
+            inp = np.nonzero(sample.cond_masks == 0.0)[0]
+            if inp.size:
+                save_final_images(sample.pixel_values[inp] * 0.5 + 0.5,
+                                  [sample.labels[i] for i in inp],
+                                  [sample.crops[i] for i in inp], self.output_dir)
+            if self.save_debug_grids:
+                self._save_debug_grid(task, sample, latents)
+
+    def _save_debug_grid(self, task: Task, sample: Sample, latents: torch.Tensor) -> None:
+        """Rows: blended skeletons, inputs, outputs (input rows dimmed) and
+        the L1 error, as the JAX package writes them."""
+        images = self.pipeline.decode(latents).astype(np.float32) / 255.0
+        inputs01 = sample.pixel_values * 0.5 + 0.5
+        sk01 = (sample.skeletons.astype(np.float32) / 255.0
+                if sample.skeletons.dtype == np.uint8 else sample.skeletons * 0.5 + 0.5)
+        outputs = images.copy()
+        outputs[sample.cond_masks == 0.0] *= 0.2
+        rows = {
+            "skeleton": sk01 * 0.8 + inputs01 * 0.2,
+            "input": inputs01,
+            "output": outputs,
+            "error": np.clip(np.abs(images - inputs01), 0.0, 1.0),
+        }
+        tag = "spa" if task.domain == "temporal" else "tem"
+        save_debug_grid(rows, self.output_dir, f"alt{task.alt}_{tag}{task.domain_label}")
 
     def validate_grid(self, after_rounds: int) -> None:
         """Every target cell sits at rounds * steps_per_alt, every input
@@ -175,15 +361,65 @@ class SlidingIterativeSampler:
                              f"{np.unique(tgt)}, expected {expected}")
         if (self.grid_t_idx[[self._spa_index[s] for s in self.input_spa_labels]] != 0).any():
             raise ValueError("grid inconsistent: input-camera cells advanced")
-        if not bool(torch.isfinite(self.grid_latents.float()).all()):
+        if not bool(torch.isfinite(self.grid_latents).all()):
             raise ValueError("grid contains non-finite latents")
 
     def execute_tasks(self) -> None:
-        """All rounds, one task at a time."""
+        """Every task not yet in the grid, one at a time, with the round-end
+        checks, the checkpoints, the budgets and the completeness check.
+
+        The next task's sample loads on an IO thread (samples do not depend
+        on the grid, so prefetching across a round boundary is exact) and a
+        task's outputs are decoded and written on a saver thread."""
+        self._exec_t0 = time.perf_counter()
+        todo: list[tuple[int, int, Task]] = []
         for round_idx, tasks in enumerate(self.all_tasks):
-            for task in tasks:
-                self.execute_one_task(task)
-            self._completed_rounds = round_idx + 1
-            self.validate_grid(self._completed_rounds)
+            if round_idx < self._completed_rounds:
+                continue
+            start, self._resume_tasks_done = self._resume_tasks_done, 0
+            todo.extend((round_idx, task_idx, task) for task_idx, task in enumerate(tasks)
+                        if task_idx >= start)
+
+        prefetch = ThreadPoolExecutor(max_workers=1)
+        self._saver = ThreadPoolExecutor(max_workers=1)
+        fut = None
+        try:
+            for j, (round_idx, task_idx, task) in enumerate(todo):
+                sample = fut.result() if fut is not None else None
+                fut = prefetch.submit(self._load_timed, todo[j + 1][2]) if j + 1 < len(todo) \
+                    else None
+                self.execute_one_task(task, sample=sample, save_async=True)
+                done = task_idx + 1
+                self._tasks_run += 1
+                budget_out = self._budget_out()
+                n_round = len(self.all_tasks[round_idx])
+                if done == n_round:
+                    self._flush_saves()
+                    self._completed_rounds = round_idx + 1
+                    self.validate_grid(self._completed_rounds)
+                    self.save_state()
+                    nxt = round_idx + 1
+                    if (nxt < len(self.all_tasks) and self.all_tasks[nxt]
+                            and self.all_tasks[nxt][0].domain != task.domain):
+                        # the finished domain's rows are not revisited soon
+                        self.pipeline.clear_condition_caches()
+                elif self.checkpoint_every_tasks > 0 and (
+                        budget_out or done % self.checkpoint_every_tasks == 0):
+                    self._flush_saves()
+                    self.save_state(tasks_done=done)
+                log.info("round %d/%d (%s): task %d/%d done", round_idx + 1,
+                         len(self.all_tasks), task.domain, done, n_round)
+                if budget_out and (round_idx, done) != (len(self.all_tasks) - 1,
+                                                        len(self.all_tasks[-1])):
+                    log.info("budget (tasks=%s, time=%s s) reached at round %d task %d/%d -- "
+                             "state saved, stopping for resume", self.task_budget,
+                             self.time_budget_s, round_idx + 1, done, n_round)
+                    self._flush_saves()
+                    return
+            self._flush_saves()
+        finally:
+            prefetch.shutdown(wait=True, cancel_futures=True)
+            self._saver.shutdown(wait=True)
+            self._saver = None
         if not check_sampling_results(self.spa_labels, self.tem_labels, self.output_dir):
             raise ValueError("Sampling failed: output grid incomplete.")

@@ -23,6 +23,7 @@ import json
 import logging
 import os
 import os.path as osp
+import threading
 import time
 from collections import defaultdict
 
@@ -31,33 +32,39 @@ import torch
 log = logging.getLogger(__name__)
 
 _TIMES: dict[str, list[float]] = defaultdict(list)
+_LOCK = threading.Lock()  # phases are also timed on the sampler's IO threads
 
 
 @contextlib.contextmanager
-def phase(name: str):
-    """Time a phase. With work on the card (CUDA initialised) the card is
-    synchronised at exit, so the time includes the phase's queued device
-    work."""
+def phase(name: str, sync: bool = True):
+    """Time a phase. With ``sync`` and work on the card (CUDA initialised)
+    the card is synchronised at exit, so the time includes the phase's queued
+    device work; a phase on a helper thread passes ``sync=False`` and ends
+    with its own blocking copy instead (a synchronise would wait for the main
+    thread's work too)."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        if torch.cuda.is_initialized():
+        if sync and torch.cuda.is_initialized():
             torch.cuda.synchronize()
-        _TIMES[name].append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        with _LOCK:
+            _TIMES[name].append(dt)
 
 
 def report(reset: bool = False) -> dict[str, dict]:
     out = {}
-    for name, vals in _TIMES.items():
-        out[name] = {
-            "count": len(vals),
-            "total_s": round(sum(vals), 4),
-            "mean_s": round(sum(vals) / len(vals), 4),
-            "max_s": round(max(vals), 4),
-        }
-    if reset:
-        _TIMES.clear()
+    with _LOCK:
+        for name, vals in _TIMES.items():
+            out[name] = {
+                "count": len(vals),
+                "total_s": round(sum(vals), 4),
+                "mean_s": round(sum(vals) / len(vals), 4),
+                "max_s": round(max(vals), 4),
+            }
+        if reset:
+            _TIMES.clear()
     return out
 
 

@@ -9,7 +9,11 @@ it. The port runs through ``diffuman4d_torch.cli.main([..., "device=cpu"])``
 with the JAX package's noise injected; the JAX side runs through the
 pieces its CLI calls (``build_config`` -> ``load_pipeline`` ->
 ``SlidingIterativeSampler.execute_tasks`` -> ``export_to_nerfstudio`` ->
-``evaluate_results``), which keeps its XLA compiles short."""
+``evaluate_results``), which keeps its XLA compiles short. Both write the
+grid state; the port's must carry the JAX package's meta and timestep
+indices, its latents within the slice test's tolerance. A second port call
+on the finished directory resumes, runs no task and exports again, and
+``save_debug_grids=true`` writes the JAX package's file set."""
 
 from __future__ import annotations
 
@@ -38,9 +42,11 @@ ARGS = [
     "sampler.alternation_rounds=2",
     "evaluating=true",
 ]
-# written by one side and not the other, or run logs: the JAX sampler's grid
-# state (not ported, ROADMAP.md A.3.b) and the logs of the port's CLI
-NOT_COMPARED = ("state/", "config_tree.log", "job.log")
+# written by the port's CLI only: its run logs
+NOT_COMPARED = ("config_tree.log", "job.log")
+# the grid states' latents: fp32 on both sides, summation order only (the
+# slice test's bound)
+LATENT_ATOL = 2e-4
 # the JPEGs on disk: decoded images within one uint8 level (in 0.004% of
 # their values here) re-encoded at quality 95 may move by a few levels
 # around such a value; measured here: equal
@@ -142,6 +148,76 @@ def test_cli_writes_the_jax_package_files(runs):
     assert phases["task/sliding_denoise"]["count"] == 6  # 2 spatial + 4 temporal tasks
 
 
+def test_cli_grid_state_matches_jax(runs):
+    from diffuman4d_torch.io.gridstate import read_state
+
+    jax_out, port_out, _, _, _ = runs
+    meta, got = read_state(str(port_out / "state" / "grid_state.d4d"))
+    jmeta, want = read_state(str(jax_out / "state" / "grid_state.d4d"))
+    assert meta == jmeta == {"seed": 0, "completed_rounds": 2, "tasks_done_in_round": 0,
+                             "bf16_bits": []}
+    assert list(got) == list(want) == ["latents", "t_idx"]
+    np.testing.assert_array_equal(got["t_idx"], want["t_idx"])
+    assert got["latents"].dtype == want["latents"].dtype == np.float32
+    np.testing.assert_allclose(got["latents"], want["latents"], rtol=0, atol=LATENT_ATOL)
+
+
+def _cli_args(port_out: Path) -> list[str]:
+    root = port_out.parent
+    return ARGS + [f"data.data_dir={root / 'data'}", f"model.model_dir={root / 'model'}"]
+
+
+def test_cli_on_a_finished_directory_resumes_and_exports_again(runs, tmp_path, capsys):
+    import shutil
+
+    from diffuman4d_torch import cli
+
+    _, port_out, _, _, _ = runs
+    out = tmp_path / "again"
+    shutil.copytree(port_out, out)
+    before = {rel: (out / rel).read_bytes() for rel in _files(out)
+              if rel.startswith(("images/", "state/"))}
+    (out / "metrics.json").unlink()
+    (out / "transforms.json").unlink()
+    assert cli.main(_cli_args(port_out) + [f"sampler.output_dir={out}", "device=cpu"]) == 0
+    assert {rel: (out / rel).read_bytes() for rel in before} == before
+    assert (out / "metrics.json").is_file() and (out / "transforms.json").is_file()
+    phases = json.loads((out / "phases.json").read_text())
+    assert {"cli/sampling", "cli/to_nerfstudio", "cli/evaluate"} <= set(phases)
+    assert not any(k.startswith("task/") for k in phases)  # no task ran
+    assert "[sampler] resumed after round 2\n" in capsys.readouterr().out
+
+
+def test_cli_debug_grids_write_the_jax_package_files(runs, tmp_path):
+    """``sampler.save_debug_grids=true``: one grid per task, as the JAX
+    sampler writes them."""
+    from diffuman4d_tpu.configs.presets import build_config as jbuild_config
+    from diffuman4d_tpu.data.dataset import SpaTemDataset as JDataset
+    from diffuman4d_tpu.sampling.loader import load_pipeline as jload
+    from diffuman4d_tpu.sampling.sampler import SlidingIterativeSampler as JSampler
+    from diffuman4d_torch import cli
+
+    _, port_out, _, _, _ = runs
+    args = _cli_args(port_out) + ["sampler.save_debug_grids=true", "evaluating=false",
+                                  "to_nerfstudio=false"]
+    cfg = jbuild_config(args + [f"sampler.output_dir={tmp_path / 'jax'}"])
+    dataset = JDataset(data_dir=cfg.data.data_dir, scene_label=cfg.data.scene_label,
+                       height=cfg.data.height, width=cfg.data.width, skeletons_uint8=True)
+    JSampler(dataset, jload(cfg.model, cfg.sampler, cfg.data), output_dir=cfg.sampler.output_dir,
+             spa_label_range=cfg.sampler.spa_label_range,
+             tem_label_range=cfg.sampler.tem_label_range,
+             input_spa_labels=cfg.sampler.input_spa_labels,
+             save_debug_grids=True).execute_tasks()
+    assert cli.main(args + [f"sampler.output_dir={tmp_path / 'port'}", "device=cpu"]) == 0
+    port = [f for f in _files(tmp_path / "port") if f != "phases.json"]
+    assert port == _files(tmp_path / "jax")
+    grids = [f for f in port if f.startswith("grids/")]
+    # 2 spatial tasks (one per frame), then 4 temporal (one per target camera)
+    assert grids == ["grids/alt1_tem000000.jpg", "grids/alt1_tem000001.jpg",
+                     "grids/alt2_spa01.jpg", "grids/alt2_spa02.jpg", "grids/alt2_spa04.jpg",
+                     "grids/alt2_spa05.jpg"]
+
+
 def test_cli_images_match_jax(runs):
     jax_out, port_out, jdecoded, pdecoded, _ = runs
     # the temporal round decodes its 4 target cameras' 2 frames each
@@ -189,10 +265,8 @@ def test_cli_without_a_card_exits_and_never_runs_on_the_cpu(tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("override,item", [
-    ("sampler.save_debug_grids=true", "A.3.e"),
     ("sampler.tasks_per_wave=2", "A.7"),
     ("sampler.split_cfg_domains=[spatial,frames]", "'spatial' and 'temporal'"),
-    ("grid_state", "A.3.b"),
 ])
 def test_cli_refuses_options_not_ported(tmp_path, monkeypatch, override, item):
     from diffuman4d_torch import cli
@@ -200,11 +274,6 @@ def test_cli_refuses_options_not_ported(tmp_path, monkeypatch, override, item):
 
     monkeypatch.setattr(loader, "load_pipeline", lambda *a, **k: pytest.fail("ran"))
     out = tmp_path / "out"
-    args = ARGS + [f"sampler.output_dir={out}", "device=cpu"]
-    if override == "grid_state":
-        (out / "state").mkdir(parents=True)
-        (out / "state" / "grid_state.d4d").write_bytes(b"")
-    else:
-        args.append(override)
+    args = ARGS + [f"sampler.output_dir={out}", "device=cpu", override]
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         cli.main(args)

@@ -6,6 +6,8 @@ fresh interpreter in which ``import jax`` / ``flax`` / ``optax`` / ``orbax``
 / ``yaml`` / ``safetensors`` fail (the card machine has neither PyYAML nor
 safetensors): it builds a tiny random-weight model with the port, runs one
 demo_3d spatial task through the port's sampler on a synthetic scene and
+then demo_4d's three rounds with streamed pose features, stopped by a task
+budget and resumed, and two budgeted sessions of the demo_4d prefix script,
 then two steps of the port's training loop, end to end on the CPU, runs the
 port's CLI once (``exp=demo_3d`` at ``model.arch=tiny``, ``device=cpu``,
 with the nerfstudio export and the metrics), writes and reloads a
@@ -57,6 +59,45 @@ SCRIPT = textwrap.dedent("""
         sampler.execute_tasks()
         assert torch.isfinite(sampler.grid_latents).all()
         assert sorted(set(sampler.grid_t_idx.ravel().tolist())) == [0, 2]
+
+        # demo_4d's schedule at the tiny shape: a run stopped by its task
+        # budget within the temporal round (whose tasks stream their pose
+        # features) and resumed equals the uninterrupted run
+        make_synthetic_scene(tmp + "/d", "scene0", num_cams=6, num_frames=4, image_size=64)
+
+        def demo4d(out, **kw):
+            streamed = Diffuman4DPipeline(
+                unet, vae, Scheduler(SchedulerConfig()),
+                SlidingConfig(window_size=2, sliding_stride=2, alternation_rounds=3,
+                              split_cfg_domains=("temporal",)),
+                image_size=64, pose_cache_mb=0)
+            return SlidingIterativeSampler(
+                SpaTemDataset(data_dir=tmp + "/d", scene_label="scene0", height=64, width=64),
+                streamed, output_dir=out, spa_label_range=(0, 6, 1), tem_label_range=(0, 4, 1),
+                input_spa_labels=[0, 3], **kw)
+
+        full = demo4d(tmp + "/d_full")
+        full.execute_tasks()
+        part = demo4d(tmp + "/d_part", task_budget=6)
+        part.execute_tasks()
+        assert part._tasks_run == 6 and part._completed_rounds == 1
+        resumed = demo4d(tmp + "/d_part")
+        assert (resumed._completed_rounds, resumed._resume_tasks_done) == (1, 2)
+        resumed.execute_tasks()
+        assert torch.equal(resumed.grid_latents, full.grid_latents)
+        assert (resumed.grid_t_idx == full.grid_t_idx).all()
+
+        # the prefix script: a budgeted session on the 48 x 150 grid, then a resume
+        from diffuman4d_torch import demo4d_prefix
+
+        for budget in ("2", "1"):
+            assert demo4d_prefix.main(["--scene", tmp + "/p", "--out", tmp + "/p_out",
+                                       "--size", "64", "--arch", "tiny", "--device", "cpu",
+                                       "--task-budget", budget]) == 0
+        from diffuman4d_torch.io.gridstate import read_state
+
+        meta, _ = read_state(tmp + "/p_out/state/grid_state.d4d")
+        assert (meta["completed_rounds"], meta["tasks_done_in_round"]) == (0, 3)
 
         # the train path: two steps (one spatial, one temporal window batch)
         from diffuman4d_torch.training.data import WindowBatcher, WindowBatcherConfig
@@ -121,6 +162,9 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_with_jax_blocked():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    # tiny shapes run as fast on one thread; a thread per core would contend
+    # with the other test workers' threads
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
