@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,train,kernels   # the train path only
     python3 chip_smoke.py --phases build,tune,kernels    # the attention sweep only
     python3 chip_smoke.py --phases build,demo4d          # demo_4d, budgeted and resumed
+    python3 chip_smoke.py --phases build,variants,kernels  # DPM++ / Euler / FreeU / skeletons
 
 Phases:
 
@@ -78,6 +79,31 @@ Phases:
    part and read just after: B10, B3 and B4 must launch in both, every
    attention launch on the kernel the table routes its shape to, at the
    spatial (L = 16, CFG batch 32) and temporal (L = 24, split CFG) shapes.
+3d. ``variants``: the checkpoint variants from diffusers directories
+   written by ``save_hf_checkpoint`` (random bf16 weights from seed 0 at
+   the production widths, SD2.1's noise schedule). (a) The skeleton-latent
+   UNet (``enable_pose_encoder=False``, ``in_channels=15``: every row's
+   skeleton VAE-encoded into the UNet's input) under DPM++: ``cli.main(
+   ["exp=demo_4d", ...])`` on the demo4d grid (16 x 12, inputs [1, 5, 9,
+   13]) cut to two rounds (spatial, temporal) at stride 4, 3 windows a
+   task, with ``to_nerfstudio=false evaluating=false``, stopped by a task
+   budget after the first temporal task; then a second ``cli.main`` resumes
+   and finishes. The state's ``aux_*`` arrays must equal the card's grid
+   history bit for bit when each call stops, the resumed sampler's history
+   must equal the file, ``has_prev`` must mark exactly the stepped latents,
+   and the outputs must be complete (192 JPEGs); per task and domain,
+   ``prepare_conditions`` and ``sliding_denoise`` are timed. For the first
+   temporal task, skeleton latents encoded beside other rows and each
+   chunk's gathered rows (a window a chunk, and padded windows of 4 + 4
+   rows) must equal the task's own encode bit for bit. (b) The same
+   weights under Euler with FreeU at its defaults (``UNetConfig.freeu``),
+   one demo_3d task of 16 cameras through ``load_pipeline``; a window step
+   of the full-width model (4 frames at 32^2 latents, CFG) through the
+   kernels and through the plain versions must agree within the reference
+   phase's bound; a production window step (CFG batch 32 at 128^2) is timed
+   with FreeU and without, in turns. Counters are zeroed just before each
+   call and task and read just after: B10, B3 and B4 must launch in each,
+   every attention launch on the kernel the table routes its shape to.
 4. ``train``: three optimiser steps of the full-width UNet (0.87 B
    parameters, fp32 masters, bf16 compute, per-block remat, AdamW) on one
    window batch of the synthetic scene through ``WindowBatcher`` +
@@ -91,8 +117,8 @@ Phases:
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
    the card's bound for the work, at a fixed list of the paths' shapes plus
-   every (shape, epilogue variant or block sizes) the tune, slice and train
-   phases launched.
+   every (shape, epilogue variant or block sizes) the tune, slice, cli,
+   demo4d, train and variants phases launched.
    Where the plain attention cannot hold the S x S scores it is compared on
    a random subset of query rows against the full K/V and timed
    query-chunked; dK/dV are then compared with Q and dO cut to that subset
@@ -109,7 +135,10 @@ spatial tasks, then a fresh call that resumes from its state and runs 1
 more, with the seconds per task, ``save_state``'s copy to the host and
 write of the 0.94 GB grid, the resume's load and the peak memory; then a
 session of two production temporal tasks (300 rows, 75 windows, streamed
-in 15 chunks of 5) from a state that claims round 1 done.
+in 15 chunks of 5) from a state that claims round 1 done; then a DPM++
+checkpoint's one-task session and a resumed one, with the state's bytes
+(latents and multistep history), ``save_state``'s copy and write and the
+resume's load.
 ``--phases build,overlap`` (not in the default set) times 4 tasks of
 demo_4d's last round (16 x 12, every target decoded) through the saver
 thread and through the serial path, in turns after one untimed run.
@@ -133,7 +162,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "tune", "reference", "slice", "cli", "demo4d", "train", "kernels")
+PHASES = ("build", "tune", "reference", "slice", "cli", "demo4d", "train", "variants",
+          "kernels")
 EXTRA_PHASES = ("profile", "demo4d_prod", "overlap")  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -170,6 +200,14 @@ D4D_WINDOWS = 6  # windows per task in both domains (12 targets, stride 2)
 # pad_u 12, 4 pad rows), which the pipeline renumbers and pads
 D4D_WINDOW_CHUNK = 2
 D4D_PADDED_WINDOWS = [(k, 4) for k in (0, 1, 2, 3, 4, 6)]  # (first frame, frames)
+# variants: SD2.1's noise schedule in a diffusers scheduler config (the class
+# name is set per run); (a) runs demo_4d's preset on the demo4d grid cut to
+# two rounds (spatial, temporal) at stride 4 (3 windows a task, each of
+# production's shape), stopped after the first temporal task
+SD21_SCHEDULER = {"num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
+                  "beta_schedule": "scaled_linear", "prediction_type": "epsilon",
+                  "timestep_spacing": "leading", "steps_offset": 1, "set_alpha_to_one": False}
+VAR_ROUNDS, VAR_STRIDE, VAR_BUDGET = 2, 4, D4D_FRAMES + 1
 # the overlap phase: tasks of demo_4d's last round (spatial, every target
 # row decoded) per run, through the saver thread and through the serial path
 OVERLAP_TASKS = 4
@@ -884,6 +922,16 @@ def _reset(wrappers) -> None:
         fn.shapes = Counter()
 
 
+def _kernel_counts(wrappers: dict) -> tuple[dict, dict]:
+    """Launches per kernel (the d = 64 kernel's split by TPU kernel) and
+    the launched shapes, from the wrappers' counters."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches.update(_d64_split(fa.flash_attention_d64.shapes))
+    return launches, {name: sorted(fn.shapes) for name, fn in wrappers.items()}
+
+
 def _scene(work: Path) -> str:
     """The synthetic 16-camera, one-frame scene at 1024^2 (made once)."""
     from diffuman4d_torch.data import make_synthetic_scene
@@ -1079,9 +1127,7 @@ def phase_slice(unet, vae, work: Path) -> dict:
     sampler.execute_tasks()  # validates the grid and the output set itself
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    shapes = {name: sorted(fn.shapes) for name, fn in wrappers.items()}
-    launches.update(_d64_split(fa.flash_attention_d64.shapes))
+    launches, shapes = _kernel_counts(wrappers)
     routed = _check_routes(fa.KERNELS, [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1146,9 +1192,9 @@ def phase_cli(unet, vae, work: Path) -> dict:
         return run
 
     def counting_denoise(denoise):
-        def run(self, cond, latents, t_idx, task_windows, domain):
+        def run(self, cond, latents, t_idx, task_windows, domain, **kw):
             windows.append(len(task_windows))
-            return denoise(self, cond, latents, t_idx, task_windows, domain)
+            return denoise(self, cond, latents, t_idx, task_windows, domain, **kw)
         return run
 
     wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
@@ -1163,9 +1209,7 @@ def phase_cli(unet, vae, work: Path) -> dict:
         rc = cli.main(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    shapes = {name: sorted(fn.shapes) for name, fn in wrappers.items()}
-    launches.update(_d64_split(fa.flash_attention_d64.shapes))
+    launches, shapes = _kernel_counts(wrappers)
     routed = _check_routes(fa.KERNELS, [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1250,10 +1294,24 @@ def _by_domain(calls: list) -> dict:
     return out
 
 
-def _streamed_chunks(pipe, cond, windows, c: int, materialised) -> dict:
-    """Every chunk's streamed pose features, pad rows included, against the
-    materialised rows of the same labels, and each chunk's renumbered
-    windows mapped back through its row union against the task's."""
+def _padded_windows(n_rows: int):
+    """Windows of D4D_PADDED_WINDOWS over a temporal task of ``n_rows``
+    rows (condition rows first, then the target's): 4 + 4 rows each, whose
+    chunk unions differ in size, so a chunk's rows are renumbered and
+    padded."""
+    import numpy as np
+
+    half = n_rows // 2
+    return np.stack([np.r_[np.arange(k, k + n), half + np.arange(k, k + n)]
+                     for k, n in D4D_PADDED_WINDOWS])
+
+
+def _streamed_chunks(pipe, cond, windows, c: int, materialised,
+                     key: str = "pose_features") -> dict:
+    """Every chunk's ``key`` rows (streamed pose features, or gathered
+    skeleton latents), pad rows included, against the materialised rows of
+    the same labels, and each chunk's renumbered windows mapped back
+    through its row union against the task's."""
     import numpy as np
     import torch
 
@@ -1265,7 +1323,7 @@ def _streamed_chunks(pipe, cond, windows, c: int, materialised) -> dict:
         U, _ = pipe._chunk_rows(w, pad_u)
         if not np.array_equal(U[wc], w):
             unequal.append(("windows", i))
-        feats = chunk["pose_features"]
+        feats = chunk[key]
         if feats.shape[0] != pad_u:
             unequal.append(("rows", i, feats.shape[0]))
         unequal += [(i, r) for j, r in enumerate(U.tolist())
@@ -1292,9 +1350,7 @@ def _cache_equalities(pipe, sampler) -> dict:
     task = sampler.all_tasks[1][0]
     sample = sampler.load_sample(task)
     windows = sampler._windows_for(task, len(sample.labels))
-    half = len(sample.labels) // 2  # condition rows first, then the target's
-    padded = np.stack([np.r_[np.arange(k, k + n), half + np.arange(k, k + n)]
-                       for k, n in D4D_PADDED_WINDOWS])
+    padded = _padded_windows(len(sample.labels))
     cond_rows = list(np.nonzero(sample.cond_masks == 0.0)[0])
     with torch.no_grad():
         pipe.clear_condition_caches()
@@ -1316,6 +1372,32 @@ def _cache_equalities(pipe, sampler) -> dict:
             "task_chunks": task_chunks, "padded_chunks": padded_chunks,
             "cond_rows": len(cond_rows), "cond_latents_equal": bool(
                 torch.equal(cold, warm) and torch.equal(cold, hits))}
+
+
+def _skeleton_equalities(pipe, sampler) -> dict:
+    """On the card, for the first temporal task of the skeleton-latent UNet:
+    every third row's skeleton latent encoded beside other rows against the
+    task's own encode, and each chunk's gathered skeleton latents -- a
+    window a chunk, and windows of 4 + 4 rows whose chunk unions are
+    renumbered and padded -- against the materialised rows, bit for bit."""
+    import torch
+
+    task = sampler.all_tasks[1][0]
+    sample = sampler.load_sample(task)
+    windows = sampler._windows_for(task, len(sample.labels))
+    with torch.no_grad():
+        pipe.clear_condition_caches()
+        cond = pipe.prepare_conditions(sample)
+        z = cond["skeleton_latents"]
+        every_third = pipe.encode_images(pipe._skeletons_to_device(sample, range(1, len(z), 3)),
+                                         pipe.skeleton_noise(sample.labels[1::3]))
+        res = {"task": task.domain_label, "rows": len(z),
+               "batch_independent": bool(torch.equal(every_third, z[1::3])),
+               "task_chunks": _streamed_chunks(pipe, cond, windows, 1, z, "skeleton_latents"),
+               "padded_chunks": _streamed_chunks(pipe, cond, _padded_windows(len(z)),
+                                                 D4D_WINDOW_CHUNK, z, "skeleton_latents")}
+        pipe.clear_condition_caches()
+    return res
 
 
 def phase_demo4d(work: Path) -> dict:
@@ -1347,11 +1429,6 @@ def phase_demo4d(work: Path) -> dict:
     wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
     expected = [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES + TEMPORAL_ATTN64_SHAPES]
 
-    def counts():
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        launches.update(_d64_split(fa.flash_attention_d64.shapes))
-        return launches, {name: sorted(fn.shapes) for name, fn in wrappers.items()}
-
     # (a) the budgeted prefix: the sampler directly, the CLI's construction
     calls_a: list = []
     pipe = loader.load_pipeline(cfg.model, cfg.sampler, cfg.data, device="cuda",
@@ -1371,7 +1448,7 @@ def phase_demo4d(work: Path) -> dict:
         sampler.execute_tasks()
         torch.cuda.synchronize()
         prefix_s = time.perf_counter() - t0
-    launches_a, shapes_a = counts()
+    launches_a, shapes_a = _kernel_counts(wrappers)
     routed_a = _check_routes(fa.KERNELS, expected)
     peak_a = torch.cuda.max_memory_allocated() / 1e9
     phases_a = report(reset=True)
@@ -1410,7 +1487,7 @@ def phase_demo4d(work: Path) -> dict:
         rc = cli.main(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-    launches_b, shapes_b = counts()
+    launches_b, shapes_b = _kernel_counts(wrappers)
     routed_b = _check_routes(fa.KERNELS, expected)
     peak_b = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -1482,6 +1559,272 @@ def phase_demo4d(work: Path) -> dict:
         for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
             if not launches[name]:
                 raise AssertionError(f"demo4d {part}: {name} never launched: {launches}")
+    return res
+
+
+def _grid_history(sampler, state_path) -> dict:
+    """The sampler's device grid and history against a state file, bit for
+    bit, and whether the history marks exactly the stepped latents."""
+    import numpy as np
+
+    from diffuman4d_torch.io.gridstate import read_state
+    from diffuman4d_torch.sampling.sampler import _to_host_bits
+
+    meta, data = read_state(str(state_path))
+    has_prev = sampler.grid_aux["has_prev"].cpu().numpy()
+    out = {"state": [meta["completed_rounds"], meta["tasks_done_in_round"]],
+           "aux_names": sorted(k for k in data if k.startswith("aux_")),
+           "aux_equal": all(np.array_equal(np.asarray(data[f"aux_{k}"]), _to_host_bits(v))
+                            for k, v in sampler.grid_aux.items()),
+           "latents_equal": bool(np.array_equal(np.asarray(data["latents"]),
+                                                _to_host_bits(sampler.grid_latents))),
+           "has_prev_is_stepped": bool(np.array_equal(has_prev, sampler.grid_t_idx > 0)),
+           "stepped": int(has_prev.sum()),
+           "state_gb": Path(state_path).stat().st_size / 1e9}
+    del data
+    return out
+
+
+def phase_variants(work: Path) -> dict:
+    """The checkpoint variants on the card, from diffusers directories: (a)
+    the skeleton-latent UNet under DPM++ through the CLI's demo_4d on the
+    16 x 12 grid, stopped by a task budget after the first temporal task
+    and resumed to the end, the history checked against the state at both
+    ends, the skeleton latents' batch independence and chunks between; (b) the same weights under Euler with FreeU, one demo_3d task
+    through ``load_pipeline``, a small full-width window step through the
+    kernels and through the plain versions, and a production window step
+    with and without FreeU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.configs.presets import build_config
+    from diffuman4d_torch.io import checkpoints
+    from diffuman4d_torch.models.freeu import FreeUConfig
+    from diffuman4d_torch.models.unet import UNetConfig
+    from diffuman4d_torch.ops import conv, flash_attention as fa
+    from diffuman4d_torch.sampling import loader, pipeline as pp
+
+    model_dir, out = work / "variants_model", work / "variants_out"
+    t0 = time.perf_counter()
+    unet, vae = loader.build_models(UNetConfig(enable_pose_encoder=False, in_channels=15),
+                                    device="cuda", dtype=torch.bfloat16, seed=0)
+    checkpoints.save_hf_checkpoint(str(model_dir), unet, vae, scheduler_config=dict(
+        SD21_SCHEDULER, _class_name="DPMSolverMultistepScheduler"))
+    del unet, vae
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    data_dir = _d4d_scene(work)
+    argv = ["exp=demo_4d", f"data.data_dir={data_dir}", "data.scene_label=scene0",
+            f"sampler.spa_label_range=[0,{D4D_CAMERAS},1]",
+            f"sampler.tem_label_range=[0,{D4D_FRAMES},1]",
+            "sampler.input_spa_labels=[" + ",".join(map(str, D4D_INPUTS)) + "]",
+            f"sampler.alternation_rounds={VAR_ROUNDS}", f"sampler.sliding_stride={VAR_STRIDE}",
+            f"model.model_dir={model_dir}", f"sampler.output_dir={out}",
+            "to_nerfstudio=false", "evaluating=false"]
+    wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
+    spatial = [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES]
+    temporal = [(B, S, S, H, 64) for B, S, H in TEMPORAL_ATTN64_SHAPES]
+    state = out / "state" / "grid_state.d4d"
+
+    def run_cli(budget, resume_check: dict):
+        """One ``cli.main`` call, the sampler built with ``budget``; the
+        built sampler is kept, and a resumed one is held to the state file
+        it resumed from."""
+        built: dict = {}
+
+        def building(build):
+            def run(*a, **k):
+                s = build(*a, **k, **({"task_budget": budget} if budget else {}))
+                built["sampler"] = s
+                built["resumed_at"] = [s._completed_rounds, s._resume_tasks_done]
+                if state.is_file():
+                    resume_check.update(_grid_history(s, state))
+                return s
+            return run
+
+        calls: list = []
+        with _patched(cli, "build_sampler", building), \
+                _patched(pp.Diffuman4DPipeline, "sliding_denoise",
+                         _recording(calls, "sliding_denoise")), \
+                _patched(pp.Diffuman4DPipeline, "prepare_conditions",
+                         _recording(calls, "prepare_conditions")):
+            torch.cuda.reset_peak_memory_stats()
+            _reset(wrappers.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches, shapes = _kernel_counts(wrappers)
+        return {"rc": rc, "cli_s": secs, "resumed_at": built["resumed_at"],
+                "by_domain": _by_domain(calls), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": launches, "shapes": shapes,
+                "phases": json.loads((out / "phases.json").read_text())}, built["sampler"]
+
+    # (a) DPM++, the skeleton-latent UNet: a budgeted CLI call, then the rest
+    first, sampler = run_cli(VAR_BUDGET, {})
+    first["routed"] = _check_routes(fa.KERNELS, spatial + temporal)
+    first["at_stop"] = _grid_history(sampler, state)
+    kind, enable_pose = sampler.pipeline.scheduler.config.kind, \
+        sampler.pipeline.unet.config.enable_pose_encoder
+    t0 = time.perf_counter()
+    equalities = _skeleton_equalities(sampler.pipeline, sampler)
+    equalities["s"] = time.perf_counter() - t0
+    del sampler
+    torch.cuda.empty_cache()
+    resumed: dict = {}
+    second, sampler = run_cli(None, resumed)
+    second["routed"] = _check_routes(fa.KERNELS, temporal)
+    second["at_end"] = _grid_history(sampler, state)
+    t_idx = sampler.grid_t_idx.copy()
+    del sampler
+    torch.cuda.empty_cache()
+    inputs = list(D4D_INPUTS)
+    targets = [i for i in range(D4D_CAMERAS) if i not in inputs]
+    jpgs = len(list((out / "images").rglob("*.jpg")))
+
+    # (b) Euler + FreeU from the same weights: one demo_3d task of 16 cameras
+    (model_dir / "scheduler" / "scheduler_config.json").write_text(json.dumps(
+        dict(SD21_SCHEDULER, _class_name="EulerDiscreteScheduler")))
+    cfg = build_config(["exp=demo_3d", f"data.data_dir={_scene(work)}", "data.scene_label=scene0",
+                        "sampler.spa_label_range=[0,16,1]", "sampler.input_spa_labels=[1,5,9,13]",
+                        f"model.model_dir={model_dir}",
+                        f"sampler.output_dir={work / 'variants_euler_out'}"])
+    with _patched(checkpoints, "unet_config_from_hf",
+                  lambda read: lambda c: dataclasses.replace(read(c),
+                                                             freeu=tuple(FreeUConfig()))):
+        pipe = loader.load_pipeline(cfg.model, cfg.sampler, cfg.data, device="cuda")
+    sampler = cli.build_sampler(cfg, pipe)
+    decoded: list = []
+    decode = pipe.decode
+    pipe.decode = lambda lat: decoded.append(decode(lat)) or decoded[-1]
+    _reset(wrappers.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.execute_tasks()
+    torch.cuda.synchronize()
+    task_s = time.perf_counter() - t0
+    euler_launches, euler_shapes = _kernel_counts(wrappers)
+    euler_routed = _check_routes(fa.KERNELS, spatial)
+    images = np.concatenate(decoded)
+
+    # a small full-width window step (4 frames at 32^2 latents, CFG) through
+    # the kernels and through the plain versions
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    L, lat = 4, 32
+    is_cond = torch.tensor([True, False, False, False], device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    cond_w = {"is_cond": is_cond, "pix_latents": rnd(L, lat, lat, 4), "plucker": rnd(L, lat, lat, 6),
+              "skeleton_latents": rnd(L, lat, lat, 4)}
+    x = rnd(L, lat, lat, 4) * pipe.scheduler.init_noise_sigma
+    ti = torch.tensor([0, 1, 1, 1], device="cuda")
+    with torch.no_grad():
+        got, _, _ = pipe._denoise_step(cond_w, x, ti, "spatial")
+        with plain_versions():
+            want, _, _ = pipe._denoise_step(cond_w, x, ti, "spatial")
+    step_rel_l2 = _rel_l2(got, want)
+
+    # a production window step (the task's first window, CFG batch 32 at
+    # 128^2) with FreeU and without, in turns
+    task = sampler.all_tasks[0][0]
+    sample = sampler.load_sample(task)
+    window = torch.from_numpy(sampler._windows_for(task, len(sample.labels))[0]).cuda()
+    with torch.no_grad():
+        cond = pipe.prepare_conditions(sample)
+        cond_w = {k: v[window] for k, v in cond.items()}
+        x = sampler.grid_latents[window, 0]
+        ti = torch.zeros(len(window), dtype=torch.int64, device="cuda")
+        freeu = [b.freeu for b in pipe.unet.up_blocks]
+
+        def step(on: bool):
+            for b, f in zip(pipe.unet.up_blocks, freeu):
+                b.freeu = f if on else None
+            return cuda_ms(lambda: pipe._denoise_step(cond_w, x, ti, "spatial"), iters=2)
+
+        turns = [step(True), step(False), step(False), step(True)]
+    del pipe, sampler, cond
+    torch.cuda.empty_cache()
+    shutil.rmtree(model_dir)  # 3.8 GB of fp32 weights
+
+    res = {"ckpt_write_s": write_s, "first": first, "equalities": equalities,
+           "resumed_from_state": resumed,
+           "second": second, "kind": kind, "enable_pose_encoder": enable_pose, "jpgs": jpgs,
+           "targets_at": sorted(set(t_idx[targets].ravel().tolist())),
+           "inputs_at": sorted(set(t_idx[inputs].ravel().tolist())),
+           "euler": {"task_s": task_s, "launches": euler_launches, "routed": euler_routed,
+                     "decoded": list(images.shape), "image_std": float(images.std()),
+                     "window_step_rel_l2": step_rel_l2,
+                     "window_step_ms_freeu_off_on": {"freeu": [turns[0], turns[3]],
+                                                     "plain": [turns[1], turns[2]]}},
+           "launches": {n: first["launches"][n] + second["launches"][n] + euler_launches[n]
+                        for n in first["launches"]},
+           "shapes": {n: sorted(set(first["shapes"][n]) | set(second["shapes"][n])
+                                | set(euler_shapes[n])) for n in first["shapes"]}}
+    log(f"variants: {json.dumps(res)}")
+    for part in (first, second):
+        log(f"variants (a): cli {part['cli_s']:.2f} s from {part['resumed_at']}, by domain "
+            f"{json.dumps(part['by_domain'])}, state d2h "
+            f"{part['phases'].get('save_state/d2h', {}).get('total_s')} s + write "
+            f"{part['phases'].get('save_state/write', {}).get('total_s')} s, resume "
+            f"{part['phases'].get('resume/load', {}).get('total_s')} s, peak "
+            f"{part['peak_gb']:.2f} GB, launches {part['launches']}")
+    log(f"variants (b): Euler + FreeU task {task_s:.2f} s, window step kernels vs plain rel L2 "
+        f"{step_rel_l2:.3e}, production window step FreeU {turns[0]:.1f} / {turns[3]:.1f} ms, "
+        f"without {turns[1]:.1f} / {turns[2]:.1f} ms")
+    n_tem = VAR_BUDGET - D4D_FRAMES  # temporal tasks before the stop
+    windows = (D4D_CAMERAS - len(D4D_INPUTS)) // VAR_STRIDE  # a task's, in both domains
+    want = {"kind": ("dpm++", False), "first_rc": 0, "first_at": [[0, 0], [1, n_tem]],
+            "first_calls": {"spatial": (D4D_FRAMES, 0, D4D_FRAMES * windows),
+                            "temporal": (n_tem, 0, n_tem * windows)},
+            "at_stop": (["aux_has_prev", "aux_prev_x0"], True, True, True),
+            "second_rc": 0, "resumed_at": [1, n_tem],
+            "resumed_from_state": (True, True, True),
+            "second_calls": {"temporal": (len(targets) - n_tem, 0,
+                                          (len(targets) - n_tem) * windows)},
+            "at_end": ([VAR_ROUNDS, 0], True, True, True, len(targets) * D4D_FRAMES),
+            "jpgs": D4D_CAMERAS * D4D_FRAMES, "inputs_at": [0],
+            "equalities": (True, windows, [], 12, 4, []),
+            "euler_decoded": [12, 1024, 1024, 3]}
+    got = {"kind": (kind, enable_pose), "first_rc": first["rc"],
+           "first_at": [first["resumed_at"], first["at_stop"]["state"]],
+           "first_calls": {d: (v["tasks"], v["streamed"], v["windows"])
+                           for d, v in first["by_domain"].items()},
+           "at_stop": (first["at_stop"]["aux_names"], first["at_stop"]["aux_equal"],
+                       first["at_stop"]["latents_equal"],
+                       first["at_stop"]["has_prev_is_stepped"]),
+           "second_rc": second["rc"], "resumed_at": second["resumed_at"],
+           "resumed_from_state": (resumed.get("aux_equal"), resumed.get("latents_equal"),
+                                  resumed.get("has_prev_is_stepped")),
+           "second_calls": {d: (v["tasks"], v["streamed"], v["windows"])
+                            for d, v in second["by_domain"].items()},
+           "at_end": (second["at_end"]["state"], second["at_end"]["aux_equal"],
+                      second["at_end"]["latents_equal"],
+                      second["at_end"]["has_prev_is_stepped"], second["at_end"]["stepped"]),
+           "jpgs": jpgs, "inputs_at": res["inputs_at"], "euler_decoded": list(images.shape),
+           "equalities": (equalities["batch_independent"],
+                          equalities["task_chunks"]["chunks"],
+                          equalities["task_chunks"]["unequal"],
+                          equalities["padded_chunks"]["pad_u"],
+                          equalities["padded_chunks"]["padded_rows"],
+                          equalities["padded_chunks"]["unequal"])}
+    if wrong := {k: (got[k], v) for k, v in want.items() if got[k] != v}:
+        raise AssertionError(f"variants: (got, expected) {wrong}")
+    if len(res["targets_at"]) != 1 or res["targets_at"][0] <= 0:
+        raise AssertionError(f"variants: targets at {res['targets_at']}")
+    if not images.std() > 0 or not step_rel_l2 <= E2E_REL_TOL:
+        raise AssertionError(f"variants: Euler + FreeU images std {images.std()}, window step "
+                             f"rel L2 {step_rel_l2} (bound {E2E_REL_TOL})")
+    for part, launches in (("a1", first["launches"]), ("a2", second["launches"]),
+                           ("b", euler_launches)):
+        for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
+            if not launches[name]:
+                raise AssertionError(f"variants {part}: {name} never launched: {launches}")
     return res
 
 
@@ -1581,14 +1924,18 @@ def phase_demo4d_prod(work: Path) -> dict:
     latents are noise, which changes no work) and a session of
     ``PROD_TEMPORAL_TASKS`` tasks resumes from it: the second task's load
     runs on the IO thread and the first's input-row writes on the saver
-    thread, each beside a denoise."""
+    thread, each beside a denoise. Last, from a diffusers directory with a
+    DPM++ scheduler, a one-task session and one that resumes from its state,
+    which then holds the multistep history beside the latents."""
     import io
 
     import numpy as np
     import torch
 
     from diffuman4d_torch import demo4d_prefix
+    from diffuman4d_torch.configs import presets
     from diffuman4d_torch.configs.presets import build_config
+    from diffuman4d_torch.io.checkpoints import save_hf_checkpoint
     from diffuman4d_torch.io.gridstate import read_state, write_state
     from diffuman4d_torch.sampling import loader, pipeline as pp
 
@@ -1646,6 +1993,34 @@ def phase_demo4d_prod(work: Path) -> dict:
             f"{ph.get('resume/load', {}).get('total_s')} s, sampler init "
             f"{ph['prefix/sampler_init']['total_s']} s, peak {r.get('peak_gb')} GB")
     log(f"demo4d_prod: temporal task {json.dumps(temporal)}")
+
+    # a DPM++ checkpoint on the production grid: a one-task session and its
+    # state (latents + the multistep history), then a session that resumes
+    # from it and runs one task more
+    dpm_dir, dpm_out = work / "prod_dpm_model", work / "prod_dpm_out"
+    unet, vae = loader.build_models(device="cuda", dtype=torch.bfloat16, seed=0)
+    save_hf_checkpoint(str(dpm_dir), unet, vae, scheduler_config=dict(
+        SD21_SCHEDULER, _class_name="DPMSolverMultistepScheduler"))
+    del unet, vae
+    torch.cuda.empty_cache()
+    with _patched(presets, "build_config",
+                  lambda build: lambda argv: build(list(argv) + [f"model.model_dir={dpm_dir}"])):
+        dpm_runs = [session(dpm_out, 1), session(dpm_out, 1)]
+    shutil.rmtree(dpm_dir)
+    dpm_meta, dpm_data = read_state(str(dpm_out / "state" / "grid_state.d4d"))
+    dpm = {"runs": dpm_runs, "state": dpm_meta,
+           "arrays": {k: [str(v.dtype), list(v.shape), int(v.nbytes)]
+                      for k, v in dpm_data.items()},
+           "state_bytes": (dpm_out / "state" / "grid_state.d4d").stat().st_size}
+    del dpm_data
+    res["dpm"] = dpm
+    for r in dpm_runs:
+        ph = r["phases"]
+        log(f"demo4d_prod DPM++: resumed at {r['resumed_rounds']} + {r['resumed_tasks']}, "
+            f"{r['tasks_run']} task in {r['run_s']:.2f} s, state {dpm['state_bytes']} bytes: "
+            f"save_state d2h {ph['save_state/d2h']['total_s']} s + write "
+            f"{ph['save_state/write']['total_s']} s, resume load "
+            f"{ph.get('resume/load', {}).get('total_s')} s, peak {r.get('peak_gb')} GB")
     log(f"demo4d_prod: {json.dumps(res)}")
     got = [(r["rc"], r["resumed_rounds"], r["resumed_tasks"], r["tasks_run"]) for r in runs]
     n_tem = temporal["by_domain"].get("temporal", {})
@@ -1657,6 +2032,10 @@ def phase_demo4d_prod(work: Path) -> dict:
             temporal["chunks"], temporal["windows_per_chunk"]) != (15 * n, [5]):
         raise AssertionError(f"demo4d_prod: runs {got}, states {meta} / {tem_meta}, "
                              f"temporal task {temporal}")
+    got = [(r["rc"], r["resumed_rounds"], r["resumed_tasks"], r["tasks_run"]) for r in dpm_runs]
+    if got != [(0, 0, 0, 1), (0, 0, 1, 1)] or sorted(dpm["arrays"]) != [
+            "aux_has_prev", "aux_prev_x0", "latents", "t_idx"]:
+        raise AssertionError(f"demo4d_prod DPM++: runs {got}, state {dpm}")
     return res
 
 
@@ -1710,10 +2089,10 @@ KERNEL_META = {
                             f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
                             ("slice", "tune")),
     "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn_d512.cu", f"{_FA}:54 (_flash_kernel)",
-                       "flash_fwd_d512", 0, ("demo4d", "cli", "slice")),
+                       "flash_fwd_d512", 0, ("demo4d", "cli", "slice", "variants")),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3_hopper.cu",
                 "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2,
-                ("demo4d", "cli", "slice")),
+                ("demo4d", "cli", "slice", "variants")),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
     "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",
@@ -1727,7 +2106,7 @@ KERNEL_META = {
                                       "flash_fwd_single_pass_batched", 0, "tune"),
     "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn_hopper.cu",
                             f"{_FA}:96 (_flash_kernel_v2)", "flash_fwd_two_level", 0,
-                            ("demo4d", "cli", "slice", "tune")),
+                            ("demo4d", "cli", "slice", "tune", "variants")),
 }
 
 
@@ -1801,6 +2180,9 @@ def main() -> int:
             run("profile", phase_profile, unet, vae, Path(args.out).parent)
         del unet, vae
         torch.cuda.empty_cache()
+    if "variants" in phases:
+        run("variants", phase_variants, work)
+        torch.cuda.empty_cache()
     if "demo4d_prod" in phases:
         run("demo4d_prod", phase_demo4d_prod, work)
         torch.cuda.empty_cache()
@@ -1808,7 +2190,7 @@ def main() -> int:
         run("overlap", phase_overlap, work)
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
-        for phase in ("tune", "slice", "cli", "demo4d", "train"):
+        for phase in ("tune", "slice", "cli", "demo4d", "train", "variants"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

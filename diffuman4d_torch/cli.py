@@ -19,8 +19,10 @@ resumes from it, and one on a finished directory runs no task and exports
 again), with ``sampler.save_debug_grids=true`` ``grids/*.jpg``, and with
 ``evaluating=true`` ``metrics.json``. ``sampler.tasks_per_wave`` > 0 and
 ``split_cfg_domains`` values other than ``spatial`` / ``temporal`` are
-refused (``ROADMAP.md`` A.7); schedulers other than DDIM raise where the
-scheduler is built (A.4).
+refused (``ROADMAP.md`` A.7). A checkpoint's scheduler may be DDIM, Euler,
+DPM++ or DDPM and its UNet may take pose features or skeleton latents, as in
+the JAX package; DDPM and DDIM with eta > 0 raise ``ValueError`` at the first
+denoising step there and here (``ROADMAP.md`` C).
 """
 
 from __future__ import annotations

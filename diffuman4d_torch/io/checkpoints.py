@@ -271,10 +271,13 @@ def _numpy_state(module: torch.nn.Module) -> dict[str, np.ndarray]:
     return {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
 
 
-def save_hf_checkpoint(model_dir: str, unet: torch.nn.Module, vae: torch.nn.Module) -> str:
+def save_hf_checkpoint(model_dir: str, unet: torch.nn.Module, vae: torch.nn.Module,
+                       scheduler_config: dict | None = None) -> str:
     """Write a diffusers-layout checkpoint directory of the port's UNet and
-    VAE (weights as F32, whatever the modules' dtype) and a DDIM scheduler
-    config, which both this package and the JAX package load."""
+    VAE (weights as F32, whatever the modules' dtype; every config field as
+    it is, ``enable_pose_encoder`` and ``in_channels`` among them) and
+    ``scheduler_config`` (default: DDIM), which both this package and the
+    JAX package load."""
     for sub in ("unet", "vae", "scheduler"):
         os.makedirs(osp.join(model_dir, sub), exist_ok=True)
     write_safetensors(osp.join(model_dir, "unet", _WEIGHTS[0]), _numpy_state(unet))
@@ -288,7 +291,7 @@ def save_hf_checkpoint(model_dir: str, unet: torch.nn.Module, vae: torch.nn.Modu
     vcfg["_class_name"] = "AutoencoderKL"
     for sub, name, cfg in (("unet", "config.json", ucfg), ("vae", "config.json", vcfg),
                            ("scheduler", "scheduler_config.json",
-                            {"_class_name": "DDIMScheduler"})):
+                            scheduler_config or {"_class_name": "DDIMScheduler"})):
         with open(osp.join(model_dir, sub, name), "w") as f:
             json.dump(cfg, f, indent=2)
     return model_dir

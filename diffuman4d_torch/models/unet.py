@@ -6,7 +6,10 @@ channels (320, 640, 1280, 1280), heads (5, 10, 20, 20), head dim 64. Only
 the deepest ``num_3d_attn_blocks`` attention stages attend across the
 window's frames (the mid block always does); an optional zero-init
 temporal embedding is fed per-frame indices; an optional pose-encoder
-feature is added to conv_in's output. Inputs and outputs are NHWC.
+feature is added to conv_in's output (without it, ``conv_in`` takes the
+skeleton's VAE latent among its input channels); ``freeu`` (``b1, b2, s1,
+s2``) turns on FreeU in the first two up blocks. Inputs and outputs are
+NHWC.
 
 Two settings serve training, as in the JAX module: ``attn_implementation``
 is handed down to every ``Attention`` ("train" selects the differentiable
@@ -33,6 +36,7 @@ from diffuman4d_torch.models.layers import (
     conv_nhwc,
     timestep_sinusoidal,
 )
+from diffuman4d_torch.models.freeu import FreeUConfig
 from diffuman4d_torch.models.pose_encoder import PoseEncoder
 from diffuman4d_torch.models.unet_blocks import (
     CrossAttnDownBlockMultiview,
@@ -78,8 +82,6 @@ class UNetMultiviewCondition(nn.Module):
     def __init__(self, config: UNetConfig = UNetConfig(), attn_implementation: str = "auto",
                  remat: bool = False):
         super().__init__()
-        if config.freeu is not None:
-            raise NotImplementedError("FreeU is not ported yet")
         cfg = self.config = config
         self.remat = remat
         impl = attn_implementation
@@ -112,6 +114,7 @@ class UNetMultiviewCondition(nn.Module):
             ch[-1], ted, cfg.num_attention_heads[-1], 1, cfg.transformer_layers_per_block,
             groups, cfg.use_linear_projection, attn_implementation=impl)
 
+        freeu = FreeUConfig(*cfg.freeu) if cfg.freeu is not None else None
         up = []
         rev_ch, rev_heads = list(reversed(ch)), list(reversed(cfg.num_attention_heads))
         n_up = cfg.layers_per_block + 1
@@ -121,12 +124,12 @@ class UNetMultiviewCondition(nn.Module):
             pop_order = list(reversed(take))
             add_up = i != n - 1
             if i == 0:
-                blk = UpBlock2D(prev, pop_order, rev_ch[i], ted, add_up, groups)
+                blk = UpBlock2D(prev, pop_order, rev_ch[i], ted, add_up, groups, i, freeu)
             else:
                 blk = CrossAttnUpBlockMultiview(
                     prev, pop_order, rev_ch[i], ted, rev_heads[i],
                     cfg.transformer_layers_per_block, add_up, groups, cfg.use_linear_projection,
-                    attn_implementation=impl)
+                    attn_implementation=impl, resolution_idx=i, freeu=freeu)
             up.append(blk)
             prev = rev_ch[i]
         self.up_blocks = nn.ModuleList(up)

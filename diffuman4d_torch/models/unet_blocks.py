@@ -3,8 +3,9 @@
 
 Down blocks emit one skip per layer plus one per downsampler; up blocks
 consume ``num_layers`` skips in reverse, each concatenated on the channel
-axis before its resnet. FreeU is not ported yet: the UNet raises when a
-config asks for it.
+axis before its resnet, after FreeU (``models/freeu.py``) where the UNet's
+config sets it: up blocks 0 and 1 (``resolution_idx``) then rescale both
+halves of each pair.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from diffuman4d_torch.models.freeu import FreeUConfig, apply_freeu
 from diffuman4d_torch.models.layers import Downsample2D, ResnetBlock2D, Upsample2D
 from diffuman4d_torch.models.transformer import TransformerMultiview
 
@@ -90,10 +92,13 @@ class UNetMidBlockMultiviewCrossAttn(nn.Module):
 
 class UpBlock2D(nn.Module):
     def __init__(self, in_channels: int, skip_channels: list[int], out_channels: int,
-                 temb_channels: int, add_upsample: bool = True, norm_groups: int = 32):
+                 temb_channels: int, add_upsample: bool = True, norm_groups: int = 32,
+                 resolution_idx: int = 0, freeu: FreeUConfig | None = None):
         """``skip_channels``: channels of the skips this block pops, in pop
         order (the last emitted first)."""
         super().__init__()
+        self.resolution_idx = resolution_idx
+        self.freeu = freeu
         resnets = []
         ch = in_channels
         for skip in skip_channels:
@@ -106,10 +111,15 @@ class UpBlock2D(nn.Module):
     def _upsample(self, x: torch.Tensor) -> torch.Tensor:
         return self.upsamplers[0](x) if hasattr(self, "upsamplers") else x
 
+    def _join(self, x: torch.Tensor, res_states: list) -> torch.Tensor:
+        """The next skip, after FreeU, concatenated to ``x``."""
+        x, res = apply_freeu(self.resolution_idx, x, res_states.pop(), self.freeu)
+        return torch.cat([x, res], dim=-1)
+
     def forward(self, x: torch.Tensor, res_states: list, temb: torch.Tensor,
                 num_frames: int = 1):
         for resnet in self.resnets:
-            x = resnet(torch.cat([x, res_states.pop()], dim=-1), temb)
+            x = resnet(self._join(x, res_states), temb)
         return self._upsample(x)
 
 
@@ -117,9 +127,10 @@ class CrossAttnUpBlockMultiview(UpBlock2D):
     def __init__(self, in_channels: int, skip_channels: list[int], out_channels: int,
                  temb_channels: int, num_heads: int, transformer_layers: int = 1,
                  add_upsample: bool = True, norm_groups: int = 32,
-                 use_linear_projection: bool = True, attn_implementation: str = "auto"):
+                 use_linear_projection: bool = True, attn_implementation: str = "auto",
+                 resolution_idx: int = 0, freeu: FreeUConfig | None = None):
         super().__init__(in_channels, skip_channels, out_channels, temb_channels, add_upsample,
-                         norm_groups)
+                         norm_groups, resolution_idx, freeu)
         head_dim = out_channels // num_heads
         self.attentions = nn.ModuleList([
             TransformerMultiview(out_channels, num_heads, head_dim, transformer_layers,
@@ -131,6 +142,5 @@ class CrossAttnUpBlockMultiview(UpBlock2D):
     def forward(self, x: torch.Tensor, res_states: list, temb: torch.Tensor,
                 num_frames: int = 1):
         for resnet, attn in zip(self.resnets, self.attentions):
-            x = resnet(torch.cat([x, res_states.pop()], dim=-1), temb)
-            x = attn(x, num_frames=num_frames)
+            x = attn(resnet(self._join(x, res_states), temb), num_frames=num_frames)
         return self._upsample(x)

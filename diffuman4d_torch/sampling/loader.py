@@ -1,8 +1,10 @@
 """Pipeline construction from config (counterpart of
 ``diffuman4d_tpu/sampling/loader.py``).
 
-:func:`load_pipeline` builds the UNet, VAE and scheduler from a local
-diffusers-layout directory (``model.model_dir``) or, when that directory
+:func:`load_pipeline` builds the UNet, VAE and scheduler (any class
+``schedulers.diffusion.from_config`` maps; its tables then live on the
+pipeline's device) from a local diffusers-layout directory
+(``model.model_dir``) or, when that directory
 has no checkpoint, with random weights (:func:`build_models`) at the
 production shape or, with ``model.arch=tiny``, at the smoke-test shape.
 Random weights follow flax's default scales: dense and conv kernels ~ N(0, 1/fan_in), biases

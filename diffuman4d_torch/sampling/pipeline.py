@@ -3,7 +3,9 @@ decode (counterpart of ``diffuman4d_tpu/sampling/pipeline.py``).
 
 * :meth:`Diffuman4DPipeline.prepare_conditions` -- VAE-encode the input
   (conditional) rows only, Plücker rays at latent resolution, pose features
-  plus the constant black-skeleton negative. Conditional latents, uint8
+  plus the constant black-skeleton negative -- or, for the skeleton-latent
+  UNet (``enable_pose_encoder=False``), every row's skeleton VAE-encoded
+  with its own posterior noise. Conditional latents, uint8
   skeleton rows and pose features are kept per frame in byte-budgeted LRU
   caches (``cond_cache``, ``*_cache_mb``), so a frame revisited by a later
   task is not encoded again. ``pose_cache_mb`` is also the materialise
@@ -14,7 +16,9 @@ decode (counterpart of ``diffuman4d_tpu/sampling/pipeline.py``).
 * :meth:`Diffuman4DPipeline.sliding_denoise` -- a Python loop over the
   precomputed window matrix in chunks of ``window_chunk`` windows; each
   window runs ``num_denoising_steps`` CFG denoising steps with the
-  vectorized per-latent scheduler step.
+  vectorized per-latent scheduler step. A multistep scheduler's per-latent
+  history (``aux``) is gathered and scattered by the windows' rows beside
+  the latents.
 * :meth:`Diffuman4DPipeline.decode` -- micro-batched VAE decode to uint8.
 
 The VAE and the pose encoder always run on micro-batches of exactly
@@ -25,15 +29,17 @@ so cache hits, streamed chunks and resumed runs equal recomputation bit for
 bit (on the card too, where another batch size may pick another algorithm).
 
 CFG follows the JAX package: the negative half replaces conditional-row
-latents with ones (white), Plücker with zeros and pose features with the
-black-skeleton feature; the UNet input channel order is
-``[latents 4 | plucker 6 | cond mask 1]``.
+latents with ones (white), Plücker with zeros, pose features with the
+black-skeleton feature and skeleton latents with -1; the UNet input channel
+order is ``[latents 4 | plucker 6 | skeleton latents 4 | cond mask 1]``,
+the skeleton latents only without the pose encoder.
 
-Randomness has two sources, both overridable so tests can inject the JAX
-package's numbers: :meth:`init_noise` (one generator per grid cell) and
-:meth:`posterior_noise` (one generator per conditional frame). The
-posterior draw is a function of the frame's label alone, with the caches
-on or off.
+Randomness has three sources, each overridable so tests can inject the JAX
+package's numbers: :meth:`init_noise` (one generator per grid cell),
+:meth:`posterior_noise` (one generator per conditional frame) and
+:meth:`skeleton_noise` (one generator per skeleton frame, another stream
+than the frame's pixels). A posterior draw is a function of the frame's
+label alone, with the caches on or off.
 """
 
 from __future__ import annotations
@@ -60,6 +66,10 @@ def _skel_u8(sk: np.ndarray) -> np.ndarray:
     if sk.dtype == np.uint8:
         return sk
     return np.clip(np.rint((sk.astype(np.float32) + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+# the skeleton posterior noise's tag in _cell_seed (the pixels' has none)
+SKELETON_NOISE_TAG = 1
 
 
 def _cell_seed(*parts: int) -> int:
@@ -164,16 +174,25 @@ class Diffuman4DPipeline:
         noise = torch.stack(rows) * self.scheduler.init_noise_sigma
         return noise.to(self.device, self.dtype)
 
-    def posterior_noise(self, labels: list) -> torch.Tensor:
-        """VAE posterior noise per conditional frame, a function of
-        (cond_seed, label) only, fp32 (N, h, w, 4)."""
+    def _label_noise(self, labels: list, *tag: int) -> torch.Tensor:
         shape = (self.latent_size, self.latent_size, self.latent_channels)
         rows = []
         for lb in labels:
             g = torch.Generator().manual_seed(
-                _cell_seed(self.cond_seed, zlib.crc32(repr(lb).encode())))
+                _cell_seed(self.cond_seed, zlib.crc32(repr(lb).encode()), *tag))
             rows.append(torch.randn(shape, generator=g, dtype=torch.float32))
         return torch.stack(rows).to(self.device)
+
+    def posterior_noise(self, labels: list) -> torch.Tensor:
+        """VAE posterior noise per conditional frame, a function of
+        (cond_seed, label) only, fp32 (N, h, w, 4)."""
+        return self._label_noise(labels)
+
+    def skeleton_noise(self, labels: list) -> torch.Tensor:
+        """VAE posterior noise per skeleton frame (the skeleton-latent
+        UNet): a function of (cond_seed, label) only, a stream of its own
+        (tag 1), so a frame's skeleton and pixels draw different numbers."""
+        return self._label_noise(labels, SKELETON_NOISE_TAG)
 
     # -- conditions ----------------------------------------------------
     @staticmethod
@@ -282,7 +301,8 @@ class Diffuman4DPipeline:
         are VAE-encoded; other rows' latents are zeros (never consumed).
         Pose features come as ``pose_features`` when every row's fit
         ``pose_cache_mb``, else as the uint8 ``skel_rows`` that
-        :meth:`sliding_denoise` streams."""
+        :meth:`sliding_denoise` streams; without the pose encoder every
+        row's skeleton comes as ``skeleton_latents``."""
         is_cond = sample.cond_masks == 0.0
         n = sample.pixel_values.shape[0]
         cond_rows = np.nonzero(is_cond)[0]
@@ -308,8 +328,16 @@ class Diffuman4DPipeline:
             "is_cond": torch.from_numpy(is_cond).to(self.device),
         }
         if not self.unet.config.enable_pose_encoder:
-            raise NotImplementedError("the skeleton-latent (no pose encoder) path is not ported "
-                                      "yet")
+            if self.cond_cache:
+                skel = self._skeletons_to_device(sample)
+            elif sample.skeletons.dtype == np.uint8:
+                skel = self._skel_norm(
+                    torch.from_numpy(np.ascontiguousarray(sample.skeletons)).to(self.device))
+            else:
+                skel = self._to_device(sample.skeletons)
+            cond["skeleton_latents"] = self.encode_images(skel,
+                                                          self.skeleton_noise(sample.labels))
+            return cond
         fits = n * self._pose_feature_bytes() <= self._pose_cache.budget
         if fits and self.cond_cache:
             cond["pose_features"] = self._pose_features_lru(sample)
@@ -348,25 +376,28 @@ class Diffuman4DPipeline:
     def _chunk_pad_u(windows: np.ndarray, c: int) -> int:
         return max(np.unique(windows[i : i + c]).size for i in range(0, windows.shape[0], c))
 
-    _DENSE_COND_KEYS = ("pix_latents", "plucker", "is_cond")
+    _DENSE_COND_KEYS = ("pix_latents", "plucker", "is_cond", "skeleton_latents")
 
     def _chunk_cond(self, cond: dict, wchunk: np.ndarray, pad_u: int) -> tuple[dict, np.ndarray]:
-        """A streamed task's conditions for one chunk of windows: the dense
-        per-row keys gathered to the chunk's row union, pose features
-        computed for those rows."""
+        """A task's conditions for one chunk of windows: the dense per-row
+        keys gathered to the chunk's row union and, for a streamed task,
+        pose features computed for those rows."""
         U, wc = self._chunk_rows(np.asarray(wchunk), pad_u)
         Ut = torch.from_numpy(U.astype(np.int64)).to(self.device)
-        out = {k: cond[k][Ut] for k in self._DENSE_COND_KEYS}
-        rows = cond["skel_rows"]
-        out["pose_features"] = self._pose_from_skel(
-            self._skel_norm(torch.stack([rows[i] for i in U])))
-        out["neg_pose_feature"] = cond["neg_pose_feature"]
+        out = {k: cond[k][Ut] for k in self._DENSE_COND_KEYS if k in cond}
+        if "skel_rows" in cond:
+            rows = cond["skel_rows"]
+            out["pose_features"] = self._pose_from_skel(
+                self._skel_norm(torch.stack([rows[i] for i in U])))
+        if "neg_pose_feature" in cond:
+            out["neg_pose_feature"] = cond["neg_pose_feature"]
         return out, wc
 
     # -- denoising -----------------------------------------------------
     def _denoise_step(self, cond_w: dict, latents_w: torch.Tensor, t_idx_w: torch.Tensor,
-                      domain: str) -> tuple[torch.Tensor, torch.Tensor]:
-        """One denoising step on one window of L rows."""
+                      domain: str, aux_w: dict | None = None):
+        """One denoising step on one window of L rows. Returns (latents,
+        t_idx, aux)."""
         cfg = self.sliding
         scheduler = self.scheduler
         is_cond = cond_w["is_cond"]
@@ -379,7 +410,8 @@ class Diffuman4DPipeline:
         sel = is_cond[:, None, None, None]
         x = torch.where(sel, cond_w["pix_latents"], x)  # clean latents on cond rows
         plucker = cond_w["plucker"]
-        pose = cond_w["pose_features"]
+        pose = cond_w.get("pose_features")
+        skel = cond_w.get("skeleton_latents")
 
         h, w = latents_w.shape[1:3]
         mask_plane = (~is_cond).to(dtype)[:, None, None, None].expand(L, h, w, 1)
@@ -388,35 +420,48 @@ class Diffuman4DPipeline:
         else:
             tem = torch.zeros((L,), dtype=torch.int32, device=dev)
 
-        def eps_of(xh, pluckerh, poseh, th, temh, maskh):
-            inp = torch.cat([xh, pluckerh, maskh], dim=-1)
-            return self.unet(inp, th, tem_indices=temh, num_frames=L, pose_features=poseh)
+        def eps_of(xh, pluckerh, poseh, skelh, th, temh, maskh):
+            parts = [xh, pluckerh] + ([skelh] if skelh is not None else []) + [maskh]
+            return self.unet(torch.cat(parts, dim=-1), th, tem_indices=temh, num_frames=L,
+                             pose_features=poseh)
 
         if cfg.do_cfg:
             neg_x = torch.where(sel, torch.ones_like(x), x)
             neg_plucker = torch.zeros_like(plucker)
-            neg_pose = cond_w["neg_pose_feature"].expand_as(pose)
+            neg_pose = None if pose is None else cond_w["neg_pose_feature"].expand_as(pose)
+            neg_skel = None if skel is None else -torch.ones_like(skel)
             if domain in cfg.split_cfg_domains:
-                eps_u = eps_of(neg_x, neg_plucker, neg_pose, t, tem, mask_plane)
-                eps_c = eps_of(x, plucker, pose, t, tem, mask_plane)
+                eps_u = eps_of(neg_x, neg_plucker, neg_pose, neg_skel, t, tem, mask_plane)
+                eps_c = eps_of(x, plucker, pose, skel, t, tem, mask_plane)
             else:
+                def both(a, b):
+                    return None if a is None else torch.cat([a, b])
+
                 eps = eps_of(
-                    torch.cat([neg_x, x]), torch.cat([neg_plucker, plucker]),
-                    torch.cat([neg_pose, pose]), torch.cat([t, t]), torch.cat([tem, tem]),
-                    torch.cat([mask_plane, mask_plane]),
+                    both(neg_x, x), both(neg_plucker, plucker), both(neg_pose, pose),
+                    both(neg_skel, skel), both(t, t), both(tem, tem),
+                    both(mask_plane, mask_plane),
                 )
                 eps_u, eps_c = eps.chunk(2)
             eps = eps_u + cfg.guidance_scale * (eps_c - eps_u)
         else:
-            eps = eps_of(x, plucker, pose, t, tem, mask_plane)
+            eps = eps_of(x, plucker, pose, skel, t, tem, mask_plane)
 
-        new_latents = scheduler.step(eps, t_idx_w, latents_w, mask=~is_cond)
-        return new_latents, t_idx_w + (~is_cond).to(t_idx_w.dtype)
+        if scheduler.has_aux:
+            new_latents, aux_w = scheduler.step_with_aux(eps, t_idx_w, latents_w, aux_w,
+                                                         mask=~is_cond)
+        else:
+            # no noise or generator, as the JAX package passes no key: DDPM
+            # and DDIM with eta > 0 raise here in both packages
+            new_latents = scheduler.step(eps, t_idx_w, latents_w, mask=~is_cond)
+        return new_latents, t_idx_w + (~is_cond).to(t_idx_w.dtype), aux_w
 
     @torch.no_grad()
     def sliding_denoise(self, cond: dict, latents: torch.Tensor, t_idx, windows: np.ndarray,
-                        domain: str):
-        """Run every window of one task. Returns (latents, t_idx numpy).
+                        domain: str, aux: dict | None = None):
+        """Run every window of one task. Returns (latents, t_idx numpy,
+        aux): ``aux`` is the multistep scheduler's per-latent history of the
+        task's rows (fresh when ``None``), ``None`` for the other kinds.
         Raises on the schedule invariants: all targets start at one index,
         inputs at 0; afterwards targets advanced by ``steps_per_alt``."""
         t_idx = np.asarray(t_idx)
@@ -429,6 +474,12 @@ class Diffuman4DPipeline:
         expected_end = int(tgt[0]) + self.sliding.steps_per_alt
 
         latents = latents.clone()
+        if not self.scheduler.has_aux:
+            aux = None
+        elif aux is None:
+            aux = self.scheduler.init_aux(latents.shape, latents.device)
+        else:
+            aux = {k: v.clone() for k, v in aux.items()}
         t_dev = torch.from_numpy(t_idx.astype(np.int64)).to(self.device)
         windows = np.asarray(windows)
         c = self._window_chunk_size(windows.shape[0])
@@ -443,12 +494,17 @@ class Diffuman4DPipeline:
                 wi = torch.from_numpy(w.astype(np.int64)).to(self.device)
                 ci = torch.from_numpy(w_cond.astype(np.int64)).to(self.device)
                 cond_w = {k: cond_c[k][ci] for k in per_row}
-                cond_w["neg_pose_feature"] = cond_c["neg_pose_feature"]
+                if "neg_pose_feature" in cond_c:
+                    cond_w["neg_pose_feature"] = cond_c["neg_pose_feature"]
                 lat_w, ti_w = latents[wi], t_dev[wi]
+                aux_w = None if aux is None else {k: v[wi] for k, v in aux.items()}
                 for _ in range(self.sliding.num_denoising_steps):
-                    lat_w, ti_w = self._denoise_step(cond_w, lat_w, ti_w, domain)
+                    lat_w, ti_w, aux_w = self._denoise_step(cond_w, lat_w, ti_w, domain, aux_w)
                 latents[wi] = lat_w
                 t_dev[wi] = ti_w
+                if aux is not None:
+                    for k, v in aux_w.items():
+                        aux[k][wi] = v
 
         t_after = t_dev.cpu().numpy().astype(np.int32)
         if (t_after[~is_cond] != expected_end).any():
@@ -456,7 +512,7 @@ class Diffuman4DPipeline:
                              f"expected {expected_end}")
         if (t_after[is_cond] != 0).any():
             raise ValueError("input latent timesteps changed")
-        return latents, t_after
+        return latents, t_after, aux
 
     # -- outputs -------------------------------------------------------
     def _decode_u8_impl(self, latents: torch.Tensor) -> torch.Tensor:

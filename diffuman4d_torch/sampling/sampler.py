@@ -2,17 +2,22 @@
 ``diffuman4d_tpu/sampling/sampler.py``).
 
 Owns the camera x frame latent grid -- one device tensor (S, T, h, w, 4)
-plus an int32 (S, T) timestep-index grid on the host -- and runs the
+plus an int32 (S, T) timestep-index grid on the host, and for a multistep
+scheduler (DPM++) its per-latent history ``grid_aux`` on the device: fp32
+``prev_x0`` (S, T, h, w, 4) and bool ``has_prev`` (S, T) -- and runs the
 alternation rounds' tasks one after another. Initial noise is seeded per
 grid cell, so results do not depend on task order.
 
 Grid state: after every round and every ``checkpoint_every_tasks`` tasks the
 grid is written to ``state/grid_state.d4d`` (``io/gridstate.py``; a bf16
-grid as its uint16 bits), and a new sampler on the same output directory
+grid as its uint16 bits, the history as ``aux_prev_x0`` / ``aux_has_prev``),
+and a new sampler on the same output directory
 always resumes from it: rounds already done are skipped, and so are the first
 ``tasks_done_in_round`` tasks of the next (tasks of a round touch disjoint
 cells, so a prefix count describes the state). A state of another seed or
-grid shape is ignored. ``task_budget`` / ``time_budget_s`` stop a run
+grid shape is ignored, and so is a state whose history names differ from
+the grid's (a DPM++ grid then starts afresh); a grid without history
+ignores a state's. ``task_budget`` / ``time_budget_s`` stop a run
 cleanly after that many tasks or past that many seconds, with the state
 saved. The next task's sample loads on one IO thread while the current one
 denoises, and finished rows are decoded and written on one saver thread;
@@ -136,6 +141,11 @@ class SlidingIterativeSampler:
         self.grid_latents = noise.reshape(
             (S, T, pipeline.latent_size, pipeline.latent_size, pipeline.latent_channels))
         self.grid_t_idx = np.zeros((S, T), np.int32)
+        self.grid_aux = None
+        if pipeline.scheduler.has_aux:
+            flat = pipeline.scheduler.init_aux((S * T,) + tuple(self.grid_latents.shape[2:]),
+                                               self.grid_latents.device)
+            self.grid_aux = {k: v.reshape((S, T) + v.shape[1:]) for k, v in flat.items()}
         self.all_tasks = self.prepare_tasks()
         self._completed_rounds = 0
         self._resume_tasks_done = 0
@@ -166,6 +176,9 @@ class SlidingIterativeSampler:
         round) are already in the grid, and a resume skips them."""
         with phase("save_state/d2h", sync=False):
             arrays = {"latents": _to_host_bits(self.grid_latents)}
+            # in name order, as the JAX sampler's (key-sorted) history
+            for k, v in sorted((self.grid_aux or {}).items()):
+                arrays[f"aux_{k}"] = _to_host_bits(v)
         arrays["t_idx"] = np.ascontiguousarray(self.grid_t_idx)
         meta = {
             "seed": self.seed,
@@ -199,12 +212,25 @@ class SlidingIterativeSampler:
             return True
         return False
 
+    def _restore_aux(self, data) -> bool:
+        """The JAX sampler's rule for a state's ``aux_*`` arrays: a grid
+        without history ignores them; a grid with history takes them when
+        their names are its own, and otherwise ignores the whole state."""
+        if self.grid_aux is None:
+            return True
+        if {k[4:] for k in data if k.startswith("aux_")} != set(self.grid_aux):
+            print("[sampler] state lacks multistep history -- ignoring state", flush=True)
+            return False
+        self.grid_aux = {
+            k: torch.from_numpy(np.array(data[f"aux_{k}"])).to(v.device, v.dtype)
+            for k, v in self.grid_aux.items()}
+        return True
+
     def _resume_from_d4d(self) -> bool:
         meta, data = read_state(self._state_path)
-        if self._mismatched(int(meta["seed"]), data["latents"].shape):
+        if self._mismatched(int(meta["seed"]), data["latents"].shape) or \
+                not self._restore_aux(data):
             return False
-        # a state's aux_* arrays (multistep history) are not read: the grid
-        # carries none, only DDIM is ported
         lat = np.array(data["latents"])  # a writable host copy of the memmap
         dev, dtype = self.grid_latents.device, self.grid_latents.dtype
         if "latents" in meta.get("bf16_bits", []):
@@ -219,7 +245,8 @@ class SlidingIterativeSampler:
     def _resume_from_npz(self) -> bool:
         """Legacy ``np.savez`` states (the JAX package's older runs)."""
         data = np.load(self._legacy_state_path)
-        if self._mismatched(int(data["seed"]), data["latents"].shape):
+        if self._mismatched(int(data["seed"]), data["latents"].shape) or \
+                not self._restore_aux({k: data[k] for k in data.files}):
             return False
         self.grid_latents = torch.from_numpy(np.array(data["latents"])).to(
             self.grid_latents.device, self.grid_latents.dtype)
@@ -290,13 +317,17 @@ class SlidingIterativeSampler:
         tem_t = torch.from_numpy(tem).to(dev)
         latents = self.grid_latents[spa_t, tem_t]
         t_idx = self.grid_t_idx[spa, tem]
+        aux = None if self.grid_aux is None else {
+            k: v[spa_t, tem_t] for k, v in self.grid_aux.items()}
         windows = self._windows_for(task, len(sample.labels))
         with phase("task/sliding_denoise"):
-            latents, t_idx = self.pipeline.sliding_denoise(cond, latents, t_idx, windows,
-                                                           task.domain)
+            latents, t_idx, aux = self.pipeline.sliding_denoise(cond, latents, t_idx, windows,
+                                                                task.domain, aux=aux)
         del cond
         self.grid_latents[spa_t, tem_t] = latents
         self.grid_t_idx[spa, tem] = t_idx
+        for k, v in (aux or {}).items():
+            self.grid_aux[k][spa_t, tem_t] = v
         if save_async and self._saver is not None:
             # decode + JPEG writes overlap the next task's denoise; joined by
             # _flush_saves before any checkpoint or grid check

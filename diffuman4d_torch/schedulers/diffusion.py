@@ -3,9 +3,11 @@
 
 Every latent sits at its own timestep: the state is an int ``t_index``
 tensor and :meth:`Scheduler.step` indexes each row's own table entries.
-Only DDIM is ported; the DDPM, Euler and DPM++ kinds raise
-``NotImplementedError``. Tables are fp32; ``step`` computes in fp32 and
-casts back.
+Four kinds, as in the JAX package: DDIM, DDPM, Euler (float timesteps,
+interpolated sigmas) and DPM-Solver++ (2M), whose per-latent multistep
+history (the previous x0 prediction and whether there is one) travels
+beside the latents through :meth:`Scheduler.step_with_aux`. Tables are
+fp32; ``step`` computes in fp32 and casts back.
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ class SchedulerConfig:
 def from_config(cfg: dict) -> "Scheduler":
     """Build from a diffusers ``scheduler_config.json`` dict (the JAX
     package's ``from_config``): the class name picks the kind, the keys
-    that are ``SchedulerConfig`` fields are taken, others dropped. Only a
-    DDIM config builds; the other kinds raise in :class:`Scheduler`."""
+    that are ``SchedulerConfig`` fields are taken, others dropped."""
     class_name = cfg.get("_class_name", "DDIMScheduler")
     kind = {
         "DDIMScheduler": "ddim",
@@ -72,22 +73,34 @@ def _make_betas(cfg: SchedulerConfig) -> np.ndarray:
 
 
 def _spaced_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndarray:
-    """Descending inference timesteps (diffusers DDIM ``set_timesteps``)."""
+    """Descending inference timesteps (diffusers ``set_timesteps``). DPM++
+    divides the range into ``n + 1`` segments and drops the last timestep
+    (its final step lands on sigma = 0 instead)."""
     t, n = cfg.num_train_timesteps, num_inference_steps
-    if cfg.timestep_spacing == "linspace":
-        return np.linspace(0, t - 1, n).round()[::-1].astype(np.int64)
-    if cfg.timestep_spacing == "leading":
-        ratio = t // n
-        return (np.arange(n) * ratio).round()[::-1].astype(np.int64) + cfg.steps_offset
     if cfg.timestep_spacing == "trailing":
-        ratio = t / n
-        return np.round(np.arange(t, 0, -ratio)).astype(np.int64) - 1
+        return np.round(np.arange(t, 0, -t / n)).astype(np.int64) - 1
+    m = n + 1 if cfg.kind == "dpm++" else n
+    if cfg.timestep_spacing == "linspace":
+        ts = np.linspace(0, t - 1, m).round()[::-1]
+    elif cfg.timestep_spacing == "leading":
+        ts = (np.arange(m) * (t // m)).round()[::-1]
+    else:
+        raise ValueError(f"Unknown timestep spacing: {cfg.timestep_spacing}")
+    ts = ts[:n].astype(np.int64)
+    return ts + cfg.steps_offset if cfg.timestep_spacing == "leading" else ts
+
+
+def _euler_timesteps(cfg: SchedulerConfig, n: int) -> np.ndarray:
+    """diffusers EulerDiscrete's float64 timesteps (fractional under
+    ``linspace`` spacing)."""
+    t = cfg.num_train_timesteps
+    if cfg.timestep_spacing == "linspace":
+        return np.linspace(0, t - 1, n, dtype=np.float64)[::-1].copy()
+    if cfg.timestep_spacing == "leading":
+        return (np.arange(n) * (t // n)).round()[::-1].copy() + cfg.steps_offset
+    if cfg.timestep_spacing == "trailing":
+        return np.round(np.arange(t, 0, -t / n)).astype(np.float64) - 1
     raise ValueError(f"Unknown timestep spacing: {cfg.timestep_spacing}")
-
-
-def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(B,) -> (B, 1, 1, ...) matching ``like``'s rank."""
-    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
 class Scheduler:
@@ -97,13 +110,12 @@ class Scheduler:
 
         sched = Scheduler(SchedulerConfig()).set_timesteps(36)
         t = sched.timestep_of(t_index, is_cond)
+        x_in = sched.scale_model_input(x, t_index)
         x = sched.step(eps, t_index, x, mask=~is_cond)
+        x, aux = sched.step_with_aux(eps, t_index, x, aux, mask=~is_cond)  # dpm++
     """
 
     def __init__(self, config: SchedulerConfig, device: torch.device | str = "cpu"):
-        if config.kind != "ddim":
-            raise NotImplementedError(f"scheduler kind {config.kind!r} is not ported yet (ddim is; "
-                                      f"ROADMAP A.4)")
         self.config = config
         self.device = torch.device(device)
         alphas_cumprod = np.cumprod(1.0 - _make_betas(config))
@@ -113,20 +125,39 @@ class Scheduler:
         )
         self.num_inference_steps: int | None = None
         self.timesteps: torch.Tensor | None = None
+        self.sigmas: torch.Tensor | None = None
 
     def set_timesteps(self, num_inference_steps: int,
                       device: torch.device | str | None = None) -> "Scheduler":
         """A new scheduler with ``num_inference_steps`` timesteps, its
-        tables on ``device`` (default: this scheduler's)."""
-        new = Scheduler(self.config, self.device if device is None else device)
+        tables on ``device`` (default: this scheduler's). Euler keeps float
+        timesteps and sigmas interpolated at them, with one trailing 0."""
+        cfg = self.config
+        new = Scheduler(cfg, self.device if device is None else device)
         new.num_inference_steps = num_inference_steps
-        ts = _spaced_timesteps(self.config, num_inference_steps)
-        new.timesteps = torch.tensor(ts, dtype=torch.int64, device=new.device)
+        if cfg.kind == "euler":
+            ts = _euler_timesteps(cfg, num_inference_steps)
+            new.timesteps = torch.tensor(ts, dtype=torch.float32, device=new.device)
+            ac = np.cumprod(1.0 - _make_betas(cfg))
+            sig_all = np.sqrt((1 - ac) / ac)
+            sig = np.interp(ts, np.arange(len(sig_all)), sig_all)
+            new.sigmas = torch.tensor(np.concatenate([sig, [0.0]]), dtype=torch.float32,
+                                      device=new.device)
+        else:
+            ts = _spaced_timesteps(cfg, num_inference_steps)
+            new.timesteps = torch.tensor(ts, dtype=torch.int64, device=new.device)
         return new
 
     @property
     def init_noise_sigma(self) -> float:
-        return 1.0
+        """The initial noise scale, an fp32 value (about 14.6 for Euler
+        under ``leading`` spacing, 1 for the other kinds)."""
+        if self.config.kind != "euler":
+            return 1.0
+        m = np.float32(self.sigmas.max().item())
+        if self.config.timestep_spacing in ("linspace", "trailing"):
+            return float(m)
+        return float(np.sqrt(m * m + np.float32(1.0)))
 
     def timestep_of(self, t_index: torch.Tensor, is_cond: torch.Tensor) -> torch.Tensor:
         """Per-sample training timestep; conditional rows forced to 0."""
@@ -134,9 +165,17 @@ class Scheduler:
         t = self.timesteps[idx.clamp(0, self.num_inference_steps - 1).long()]
         return torch.where(is_cond, torch.zeros_like(t), t)
 
+    def _clamped(self, t_index: torch.Tensor) -> torch.Tensor:
+        return t_index.clamp(0, self.num_inference_steps - 1).long()
+
     def scale_model_input(self, sample: torch.Tensor, t_index: torch.Tensor) -> torch.Tensor:
-        """Identity for DDIM."""
-        return sample
+        """Euler divides by sqrt(sigma^2 + 1) in fp32; the other kinds
+        return ``sample``."""
+        if self.config.kind != "euler":
+            return sample
+        sigma = self.sigmas[self._clamped(t_index)]
+        scale = 1.0 / torch.sqrt(sigma**2 + 1.0)
+        return (sample.float() * _bcast(scale, sample)).to(sample.dtype)
 
     def _sqrt_alpha_pair(self, sample: torch.Tensor, timesteps: torch.Tensor):
         a = self.alphas_cumprod.to(sample.device)[timesteps.long()]
@@ -156,22 +195,35 @@ class Scheduler:
 
     def step(
         self,
-        model_output: torch.Tensor,  # (B, ...) eps prediction
+        model_output: torch.Tensor,  # (B, ...) network prediction
         t_index: torch.Tensor,  # (B,) index into self.timesteps
         sample: torch.Tensor,  # (B, ...) current latents
         mask: torch.Tensor | None = None,  # (B,) True = step this row
-        noise: torch.Tensor | None = None,  # DDIM eta > 0 noise
+        noise: torch.Tensor | None = None,  # DDPM / DDIM eta > 0 noise
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """One DDIM step per row at its own timestep; rows with
-        ``mask == False`` pass through unchanged."""
+        """One reverse step per row at its own timestep; rows with
+        ``mask == False`` pass through unchanged. DDPM and DDIM with eta > 0
+        draw their noise from ``noise`` or ``generator`` and raise
+        ``ValueError`` without either, as the JAX package does without a
+        key."""
         if self.num_inference_steps is None:
             raise ValueError("call set_timesteps first")
+        kind = self.config.kind
+        if kind == "dpm++":
+            raise ValueError("dpm++ is multistep: use step_with_aux")
         dtype = sample.dtype
         x = sample.float()
         eps = model_output.float()
-        idx = t_index.clamp(0, self.num_inference_steps - 1).long()
-        out = self._ddim_step(eps, idx, x, noise, generator)
+        idx = self._clamped(t_index)
+        if kind == "euler":
+            out = self._euler_step(eps, idx, x)
+        elif kind == "ddim":
+            out = self._ddim_step(eps, idx, x, noise, generator)
+        elif kind == "ddpm":
+            out = self._ddpm_step(eps, idx, x, noise, generator)
+        else:
+            raise ValueError(kind)
         if mask is not None:
             out = torch.where(_bcast(mask, out), out, x)
         return out.to(dtype)
@@ -205,22 +257,138 @@ class Scheduler:
             self.alphas_cumprod[prev_t.clamp(min=0)],
             torch.full_like(a_t, self.final_alpha_cumprod),
         )
-        return _bcast(a_t, x), _bcast(a_prev, x)
+        return _bcast(a_t, x), _bcast(a_prev, x), t, prev_t
+
+    @staticmethod
+    def _noise(x, noise, generator, what: str) -> torch.Tensor:
+        if noise is None:
+            if generator is None:
+                raise ValueError(f"{what} requires a key (or explicit noise)")
+            noise = torch.randn(x.shape, generator=generator, device=generator.device)
+        return noise.to(x.device, torch.float32)
 
     def _ddim_step(self, model_output, idx, x, noise, generator):
-        a_t, a_prev = self._alpha_pair(idx, x)
+        a_t, a_prev, _, _ = self._alpha_pair(idx, x)
         x0, eps = self._pred_x0(model_output, x, a_t)
         eta = self.config.ddim_eta
         if eta > 0:
             var = (1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev)
             std = eta * torch.sqrt(var)
-            if noise is None:
-                if generator is None:
-                    raise ValueError("ddim with eta > 0 needs noise or a generator")
-                noise = torch.randn(x.shape, generator=generator, device=generator.device)
-            noise = noise.to(x.device, torch.float32)
+            noise = self._noise(x, noise, generator, "ddim with eta > 0")
         else:
             std = torch.zeros_like(a_t)
             noise = torch.zeros_like(x)
         dir_xt = torch.sqrt((1.0 - a_prev - std**2).clamp(min=0.0)) * eps
         return torch.sqrt(a_prev) * x0 + dir_xt + std * noise
+
+    def _ddpm_step(self, model_output, idx, x, noise, generator):
+        a_t, a_prev, t, prev_t = self._alpha_pair(idx, x)
+        # diffusers' DDPMScheduler takes alpha_prev = 1 past the schedule's
+        # end, where DDIM takes final_alpha_cumprod
+        a_prev = torch.where(_bcast(prev_t >= 0, x), a_prev, torch.ones_like(a_prev))
+        x0, _ = self._pred_x0(model_output, x, a_t)
+        current_alpha = a_t / a_prev
+        current_beta = 1.0 - current_alpha
+        coef_x0 = torch.sqrt(a_prev) * current_beta / (1.0 - a_t)
+        coef_xt = torch.sqrt(current_alpha) * (1.0 - a_prev) / (1.0 - a_t)
+        mean = coef_x0 * x0 + coef_xt * x
+        vt = self.config.variance_type
+        if vt == "fixed_small":
+            var = (1.0 - a_prev) / (1.0 - a_t) * current_beta
+        elif vt == "fixed_large":
+            var = current_beta
+        else:
+            raise NotImplementedError(f"ddpm variance_type {vt}")
+        var = var.clamp(min=1e-20)
+        noise = self._noise(x, noise, generator, "ddpm step")
+        # variance noise only while t > 0, as in diffusers
+        return mean + torch.where(_bcast(t > 0, x), torch.sqrt(var) * noise,
+                                  torch.zeros_like(mean))
+
+    def _euler_step(self, model_output, idx, x):
+        sigma = _bcast(self.sigmas[idx], x)
+        sigma_next = _bcast(self.sigmas[idx + 1], x)
+        p = self.config.prediction_type
+        if p == "epsilon":
+            x0 = x - sigma * model_output
+        elif p == "v_prediction":
+            x0 = model_output * (-sigma / torch.sqrt(sigma**2 + 1)) + x / (sigma**2 + 1)
+        elif p == "sample":
+            x0 = model_output
+        else:
+            raise ValueError(p)
+        derivative = (x - x0) / sigma
+        return x + derivative * (sigma_next - sigma)
+
+    # -- DPM-Solver++ (2M): multistep with explicit per-latent history -----
+    @property
+    def has_aux(self) -> bool:
+        return self.config.kind == "dpm++"
+
+    def init_aux(self, sample_shape, device: torch.device | str | None = None) -> dict:
+        """Per-latent multistep history: the previous x0 prediction (fp32)
+        and whether there is one (bool), on ``device`` (default: the
+        scheduler's)."""
+        dev = self.device if device is None else device
+        return {"prev_x0": torch.zeros(tuple(sample_shape), dtype=torch.float32, device=dev),
+                "has_prev": torch.zeros(tuple(sample_shape[:1]), dtype=torch.bool, device=dev)}
+
+    def _lambda(self, t):
+        a = self.alphas_cumprod[t]
+        alpha, sigma = torch.sqrt(a), torch.sqrt(1.0 - a)
+        return torch.log(alpha / sigma), alpha, sigma
+
+    def step_with_aux(
+        self,
+        model_output: torch.Tensor,
+        t_index: torch.Tensor,
+        sample: torch.Tensor,
+        aux: dict | None,
+        mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict | None]:
+        """DPM-Solver++(2M) step per latent: first order where a latent has
+        no history, second order from its stored x0 prediction otherwise;
+        the last step returns x0. Rows with ``mask == False`` keep their
+        latents and their history. Other kinds step with :meth:`step` and
+        pass ``aux`` through."""
+        if self.config.kind != "dpm++":
+            return self.step(model_output, t_index, sample, mask=mask), aux
+        dtype = sample.dtype
+        x = sample.float()
+        idx = self._clamped(t_index)
+        n = self.num_inference_steps
+        t = self.timesteps[idx]
+        # the schedule's neighbours (diffusers indexes sigmas by step), not
+        # t -+ the train ratio
+        t_prev2 = self.timesteps[(idx - 1).clamp(min=0)]
+        t_next = self.timesteps[(idx + 1).clamp(max=n - 1)]
+        is_last = idx == n - 1
+
+        x0, _ = self._pred_x0(model_output.float(), x, _bcast(self.alphas_cumprod[t], x))
+        lam_t, _, sig_t = self._lambda(t)
+        lam_s, alp_s, sig_s = self._lambda(t_next)
+        lam_p, _, _ = self._lambda(t_prev2)
+        h = lam_s - lam_t
+        h_prev = lam_t - lam_p
+        r = h_prev / torch.where(h == 0, torch.ones_like(h), h)
+
+        has_prev = aux["has_prev"]
+        coef = 1.0 / (2.0 * r.clamp(min=1e-8))
+        d = torch.where(_bcast(has_prev, x),
+                        _bcast(1 + coef, x) * x0 - _bcast(coef, x) * aux["prev_x0"], x0)
+        out = (_bcast(sig_s / sig_t, x) * x
+               - _bcast(alp_s, x) * _bcast(torch.expm1(-h), x) * d)
+        out = torch.where(_bcast(is_last, x), x0, out)
+
+        if mask is None:
+            new_aux = {"prev_x0": x0, "has_prev": torch.ones_like(has_prev)}
+        else:
+            out = torch.where(_bcast(mask, out), out, x)
+            new_aux = {"prev_x0": torch.where(_bcast(mask, x0), x0, aux["prev_x0"]),
+                       "has_prev": mask | has_prev}
+        return out.to(dtype), new_aux
+
+
+def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B,) -> (B, 1, 1, ...) matching ``like``'s rank."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))

@@ -209,7 +209,8 @@ def test_streamed_temporal_task_matches_jax(models, samples):
     t_idx = np.zeros(n, np.int32)
     jlat, jt, _ = jpipe.sliding_denoise(jcond, jax.numpy.asarray(latents), t_idx, windows,
                                         task.domain)
-    lat, t = pipe.sliding_denoise(cond, torch.from_numpy(latents), t_idx, windows, task.domain)
+    lat, t, _ = pipe.sliding_denoise(cond, torch.from_numpy(latents), t_idx, windows,
+                                     task.domain)
     np.testing.assert_array_equal(t, np.asarray(jt))
     assert sorted(set(t.tolist())) == [0, pipe.sliding.steps_per_alt]
     np.testing.assert_allclose(lat.numpy(), np.asarray(jlat), rtol=0, atol=LATENT_ATOL)

@@ -200,10 +200,12 @@ def test_scheduler_from_config_matches_jax():
     assert dataclasses.asdict(got.config) == dataclasses.asdict(want.config)
     np.testing.assert_allclose(got.alphas_cumprod.numpy(), np.asarray(want.alphas_cumprod),
                                rtol=1e-6)
-    for other in ("DDPMScheduler", "EulerDiscreteScheduler", "DPMSolverMultistepScheduler",
-                  "PNDMScheduler"):
+    for other in ("DDPMScheduler", "EulerDiscreteScheduler", "DPMSolverMultistepScheduler"):
+        got, want = from_config({**cfg, "_class_name": other}), jfrom({**cfg, "_class_name": other})
+        assert dataclasses.asdict(got.config) == dataclasses.asdict(want.config)
+    for pkg_from in (from_config, jfrom):  # a class neither package maps
         with pytest.raises(NotImplementedError):
-            from_config({"_class_name": other})
+            pkg_from({"_class_name": "PNDMScheduler"})
 
 
 def test_load_pipeline_random_branch_matches_jax_configs(monkeypatch):

@@ -132,8 +132,9 @@ def test_chip_smoke_kernel_records():
     """Every kernel's source exists and names the TPU kernel it replaces;
     B5 and B10 come from the Hopper file; B10's launches are read from
     demo_4d (budgeted, then resumed by the CLI), the main path, then the
-    CLI's production demo_3d and the slice, before the tuner; B3 and B4
-    launch on the same sampling paths."""
+    CLI's production demo_3d and the slice, before the tuner, and last the
+    checkpoint variants (read where a partial run drove only those); B3 and
+    B4 launch on the same sampling paths."""
     meta = _chip_smoke().KERNEL_META
     assert len(meta) == 9  # ten TPU kernels; B6 and B7 are one fused kernel
     for name, (source, replaces, *_rest, phases) in meta.items():
@@ -142,9 +143,9 @@ def test_chip_smoke_kernel_records():
         assert (ROOT / path).is_file() and int(line) > 0, name
     for name in ("flash_fwd_lse", "flash_fwd_two_level"):
         assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_hopper.cu"
-    assert meta["flash_fwd_two_level"][-1] == ("demo4d", "cli", "slice", "tune")
+    assert meta["flash_fwd_two_level"][-1] == ("demo4d", "cli", "slice", "tune", "variants")
     for name in ("flash_fwd_d512", "conv3x3"):
-        assert meta[name][-1] == ("demo4d", "cli", "slice")
+        assert meta[name][-1] == ("demo4d", "cli", "slice", "variants")
 
 
 def test_chip_smoke_fused_backward_record_names_both_tpu_kernels():

@@ -67,10 +67,24 @@ def test_unet_pose_features_path(tiny_unet):
 
 
 def test_unet_freeu_is_queued():
-    from diffuman4d_torch.models.unet import UNetConfig, UNetMultiviewCondition
-
-    with pytest.raises(NotImplementedError):
-        UNetMultiviewCondition(UNetConfig(**TINY_UNET, freeu=(1.0, 1.0, 1.0, 1.0)))
+    """FreeU, once refused, now matches the JAX UNet with the same tuple
+    ``(b1, b2, s1, s2)`` (the FreeU paper's SD2.1 values) and changes the
+    output."""
+    cfg = dict(TINY_UNET, freeu=(1.4, 1.6, 0.9, 0.2))
+    mod, params = jax_unet(cfg)
+    unet = port_unet(cfg, params)
+    L = 4
+    r = rng(11)
+    x, sk = randn(r, L, 8, 8, 11), np.clip(randn(r, L, 64, 64, 3), -1, 1)
+    ts = np.array([0, 981, 500, 21], np.int32)
+    tem = np.tile(np.arange(L // 2), 2).astype(np.int32)
+    want = jit_apply(mod, num_frames=L)(params, j(x), jnp.asarray(ts), j(sk), jnp.asarray(tem))
+    plain = port_unet(TINY_UNET, params)
+    with torch.no_grad():
+        got = unet(t(x), torch.from_numpy(ts), t(sk), torch.from_numpy(tem), num_frames=L)
+        off = plain(t(x), torch.from_numpy(ts), t(sk), torch.from_numpy(tem), num_frames=L)
+    np.testing.assert_allclose(n(got), n(want), rtol=0, atol=UNET_ATOL)
+    assert float((got - off).abs().max()) > 1e3 * UNET_ATOL
 
 
 @pytest.fixture(scope="module")
@@ -188,10 +202,40 @@ def test_ddim_step_matches_jax(eta):
 
 @pytest.mark.parametrize("kind", ["ddpm", "euler", "dpm++"])
 def test_other_schedulers_are_queued(kind):
+    """The kinds once refused build now, at the demo_4d step count: their
+    timesteps, initial noise scale and one step from the same inputs match
+    the JAX package's (DDPM with explicit noise; DPM++ with its history).
+    The whole trajectories are in test_torch_port_schedulers.py."""
+    from diffuman4d_tpu.schedulers.diffusion import Scheduler as JS
+    from diffuman4d_tpu.schedulers.diffusion import SchedulerConfig as JC
     from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
 
-    with pytest.raises(NotImplementedError):
-        Scheduler(SchedulerConfig(kind=kind))
+    steps = 24
+    js = JS(JC(kind=kind)).set_timesteps(steps)
+    ps = Scheduler(SchedulerConfig(kind=kind)).set_timesteps(steps)
+    np.testing.assert_array_equal(n(ps.timesteps), np.asarray(js.timesteps, np.float32))
+    assert np.float32(ps.init_noise_sigma) == np.float32(js.init_noise_sigma)
+    r = rng(12)
+    x, eps, noise = randn(r, 4, 4, 4, 4), randn(r, 4, 4, 4, 4), randn(r, 4, 4, 4, 4)
+    idx = np.array([0, 5, 11, 23], np.int32)
+    mask = np.array([False, True, True, True])
+    if kind == "dpm++":
+        aux = {"prev_x0": randn(r, 4, 4, 4, 4), "has_prev": np.array([True, False, True, True])}
+        want, _ = js.step_with_aux(j(eps), jnp.asarray(idx), j(x),
+                                   {"prev_x0": j(aux["prev_x0"]),
+                                    "has_prev": jnp.asarray(aux["has_prev"])},
+                                   mask=jnp.asarray(mask))
+        got, _ = ps.step_with_aux(t(eps), torch.from_numpy(idx), t(x),
+                                  {"prev_x0": t(aux["prev_x0"]),
+                                   "has_prev": torch.from_numpy(aux["has_prev"])},
+                                  mask=torch.from_numpy(mask))
+    else:
+        kw = {"noise": noise} if kind == "ddpm" else {}
+        want = js.step(j(eps), jnp.asarray(idx), j(x), mask=jnp.asarray(mask),
+                       **{k: j(v) for k, v in kw.items()})
+        got = ps.step(t(eps), torch.from_numpy(idx), t(x), mask=torch.from_numpy(mask),
+                      **{k: t(v) for k, v in kw.items()})
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 def test_rays_match_jax():

@@ -7,7 +7,9 @@ fresh interpreter in which ``import jax`` / ``flax`` / ``optax`` / ``orbax``
 safetensors): it builds a tiny random-weight model with the port, runs one
 demo_3d spatial task through the port's sampler on a synthetic scene and
 then demo_4d's three rounds with streamed pose features, stopped by a task
-budget and resumed, and two budgeted sessions of the demo_4d prefix script,
+budget and resumed, the skeleton-latent UNet with FreeU under DPM++
+(stopped and resumed, its history included) and under Euler, two budgeted
+sessions of the demo_4d prefix script,
 then two steps of the port's training loop, end to end on the CPU, runs the
 port's CLI once (``exp=demo_3d`` at ``model.arch=tiny``, ``device=cpu``,
 with the nerfstudio export and the metrics), writes and reloads a
@@ -86,6 +88,42 @@ SCRIPT = textwrap.dedent("""
         resumed.execute_tasks()
         assert torch.equal(resumed.grid_latents, full.grid_latents)
         assert (resumed.grid_t_idx == full.grid_t_idx).all()
+
+        # the checkpoint variants: the skeleton-latent UNet with FreeU under
+        # DPM++ (its history in the grid and the state; stopped by a task
+        # budget and resumed) and under Euler
+        import dataclasses
+
+        from diffuman4d_torch.models.freeu import FreeUConfig
+
+        skel_unet, skel_vae = build_models(
+            dataclasses.replace(unet_cfg, in_channels=15, enable_pose_encoder=False,
+                                freeu=tuple(FreeUConfig())),
+            VAEConfig(block_out_channels=(4, 4, 8, 8), layers_per_block=1),
+            device="cpu", dtype=torch.float32, seed=1)
+
+        def variant(out, kind, **kw):
+            p = Diffuman4DPipeline(skel_unet, skel_vae, Scheduler(SchedulerConfig(kind=kind)),
+                                   SlidingConfig(window_size=2, sliding_stride=2,
+                                                 alternation_rounds=2,
+                                                 split_cfg_domains=("temporal",)),
+                                   image_size=64)
+            return SlidingIterativeSampler(
+                SpaTemDataset(data_dir=tmp + "/d", scene_label="scene0", height=64, width=64),
+                p, output_dir=out, spa_label_range=(0, 6, 1), tem_label_range=(0, 4, 1),
+                input_spa_labels=[0, 3], **kw)
+
+        full = variant(tmp + "/v_full", "dpm++")
+        full.execute_tasks()
+        variant(tmp + "/v_part", "dpm++", task_budget=5).execute_tasks()
+        resumed = variant(tmp + "/v_part", "dpm++")
+        assert (resumed._completed_rounds, resumed._resume_tasks_done) == (1, 1)
+        resumed.execute_tasks()
+        assert torch.equal(resumed.grid_latents, full.grid_latents)
+        assert all(torch.equal(resumed.grid_aux[k], full.grid_aux[k]) for k in full.grid_aux)
+        euler = variant(tmp + "/v_euler", "euler")
+        euler.execute_tasks()
+        assert torch.isfinite(euler.grid_latents).all()
 
         # the prefix script: a budgeted session on the 48 x 150 grid, then a resume
         from diffuman4d_torch import demo4d_prefix

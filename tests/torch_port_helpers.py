@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from diffuman4d_torch.io.checkpoints import (
@@ -35,6 +36,16 @@ TINY_UNET = dict(
     enable_pose_encoder=True,
 )
 TINY_VAE = dict(block_out_channels=(4, 4, 8, 8), layers_per_block=1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Autouse in the modules that import it: tiny shapes run as fast on one
+    torch thread, and the suite's other workers keep the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def rng(seed: int = 0) -> np.random.Generator:
