@@ -15,10 +15,10 @@ Phases:
 1b. ``tune``: the attention tuner's entry point
    (``diffuman4d_torch.tune_attention.main``) on six hot shapes
    (``TUNE_SHAPES``), writing a table under ``build/smoke/``: every
-   candidate kernel and block size is timed, the single-pass (B8), batched
-   single-pass (B9) and two-level (B10) kernels among them. Counters are
-   zeroed just before it and read just after: each of the three must have
-   launched, and no candidate may have failed. Its winners are printed
+   candidate kernel and block size is timed, the skewed-pipeline (B1/B2),
+   single-pass (B8), batched single-pass (B9) and two-level (B10) kernels
+   among them. Counters are zeroed just before it and read just after: each
+   of the four must have launched, and no candidate may have failed. Its winners are printed
    beside the committed table's (a different winner is reported, not
    failed: another card's clocks are no fault of the program).
 2. ``reference``: the full-width UNet on one small CFG window and the VAE
@@ -51,7 +51,7 @@ Phases:
    JPEGs, ``transforms.json`` with 48 frames, ``transforms_input.json``
    with 4 and ``metrics.json`` with 44 values and a finite mean PSNR; the
    loaded weights must equal the saved ones bit for bit; the task must run
-   44 windows; B10, B3 and B4 must have launched, every attention launch on
+   44 windows; B3 and B4 must have launched, every attention launch on
    the kernel the table routes its shape to.
 3c. ``demo4d``: the ``exp=demo_4d`` preset's schedule (window 12, stride
    2, three rounds spatial / temporal / spatial, DDIM, CFG 2.0 split on the
@@ -76,7 +76,7 @@ Phases:
    frames, ``metrics.json`` with 144 values and a finite mean PSNR and a
    final state at round 3 with every target cell at the last step and every
    input cell at 0. Counters and shape records are zeroed just before each
-   part and read just after: B10, B3 and B4 must launch in both, every
+   part and read just after: B3 and B4 must launch in both, every
    attention launch on the kernel the table routes its shape to, at the
    spatial (L = 16, CFG batch 32) and temporal (L = 24, split CFG) shapes.
 3d. ``variants``: the checkpoint variants from diffusers directories
@@ -102,7 +102,7 @@ Phases:
    kernels and through the plain versions must agree within the reference
    phase's bound; a production window step (CFG batch 32 at 128^2) is timed
    with FreeU and without, in turns. Counters are zeroed just before each
-   call and task and read just after: B10, B3 and B4 must launch in each,
+   call and task and read just after: B3 and B4 must launch in each,
    every attention launch on the kernel the table routes its shape to.
 4. ``train``: three optimiser steps of the full-width UNet (0.87 B
    parameters, fp32 masters, bf16 compute, per-block remat, AdamW) on one
@@ -116,9 +116,11 @@ Phases:
 5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
-   the card's bound for the work, at a fixed list of the paths' shapes plus
-   every (shape, epilogue variant or block sizes) the tune, slice, cli,
-   demo4d, train and variants phases launched.
+   the card's bound for the work, at a fixed list of the paths' shapes (the
+   d = 64 kernel at the table's blocks; the single pass at S 256, 512 and
+   1,024, a ragged S and its largest Sk, 4,096) plus every (shape, epilogue
+   variant or block sizes) the tune, slice, cli, demo4d, train and variants
+   phases launched.
    Where the plain attention cannot hold the S x S scores it is compared on
    a random subset of query rows against the full K/V and timed
    query-chunked; dK/dV are then compared with Q and dO cut to that subset
@@ -184,6 +186,15 @@ SLICE_ATTN64_SHAPES = ATTN64_SHAPES + [(32, 256, 20)]
 # 4 of them inputs, so 44 targets, 44 windows at stride 1
 CLI_CAMERAS, CLI_INPUTS = 48, 4
 ATTN512_SHAPES = [(2, 16384, 1)]  # VAE mid block at 128^2 latents
+# (B, Sq, Sk, H, *blocks) of the single pass (B8) and its batched form (B9):
+# the per-frame 16^2 mid block (the heaviest path shape, first), 512 and
+# 1,024 keys (the per-frame 32^2 level), a ragged length and the largest Sk
+# the gate admits
+SINGLE_PASS_SHAPES = [(32, 256, 256, 20, 128), (32, 512, 512, 20, 128),
+                      (32, 1024, 1024, 20, 128), (32, 777, 777, 20, 64),
+                      (4, 200, 4096, 20, 128)]
+SINGLE_PASS_BATCHED_SHAPES = [(32, 256, 256, 20, 128, 5), (32, 512, 512, 20, 128, 4),
+                              (32, 1024, 1024, 20, 128, 8), (24, 300, 700, 10, 64, 4)]
 # demo4d: the demo_4d preset's schedule on the smallest grid its window
 # admits with more than one round, 16 cameras (12 targets) x 12 frames
 D4D_CAMERAS, D4D_FRAMES, D4D_INPUTS = 16, 12, (1, 5, 9, 13)
@@ -642,15 +653,19 @@ def phase_kernels(launched: dict) -> dict:
     results = {name: [] for name in ATTN_NAMES.values()}
     results.update({"conv3x3": [], "flash_fwd_lse": [], "flash_bwd": [], "conv3x3_grad": []})
     cache: dict = {}  # plain and library times per attention shape
+    fixed_attn = {
+        # the d = 64 kernel at the blocks the table gives each shape
+        "flash_d64": [(B, S, S, H, *_d64_blocks(B, S, H)) for B, S, H in ATTN64_SHAPES],
+        "flash_d512": [(B, S, S, H) for B, S, H in ATTN512_SHAPES],
+        "single_pass": SINGLE_PASS_SHAPES, "single_pass_batched": SINGLE_PASS_BATCHED_SHAPES}
     for kernel, name in ATTN_NAMES.items():
         D = 512 if kernel == "flash_d512" else 64
-        fixed = {"flash_d64": ATTN64_SHAPES, "flash_d512": ATTN512_SHAPES}.get(kernel, [])
-        for B, S, Sk, H, *blocks in _ordered([(B, S, S, H) for B, S, H in fixed],
-                                             map(tuple, launched.get(name, ()))):
+        fixed = fixed_attn.get(kernel, [])
+        for B, S, Sk, H, *blocks in _ordered(fixed, map(tuple, launched.get(name, ()))):
             results[name].append(check_attention(B, S, Sk, H, D, gen, kernel, tuple(blocks),
                                                  cache))
             torch.cuda.empty_cache()
-        if not fixed:  # B8-B10: the heaviest launch first, fastest block sizes first
+        if not fixed:  # B10: the heaviest launch first, fastest block sizes first
             results[name].sort(key=lambda r: (-r["flop"], r["ms"]))
     fixed = [shape + flags for shape in CONV_SHAPES for flags in CONV_VARIANTS.values()]
     for shape in _ordered(fixed, launched.get("conv3x3", ())):
@@ -668,6 +683,15 @@ def phase_kernels(launched: dict) -> dict:
         results["conv3x3_grad"].append(check_conv_grad(TRAIN_L, 128, 128, 640, 640, *flags, gen))
         torch.cuda.empty_cache()
     return results
+
+
+def _d64_blocks(B: int, S: int, H: int) -> tuple:
+    """The d = 64 kernel's blocks at (B, S, H): the table's where it routes
+    the shape there, else the wrapper's default."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    name, params = _routed(B, S, S, H, 64)
+    return tuple(params.values()) if name == "flash_d64" else fa.SKEW_DEFAULT
 
 
 @contextlib.contextmanager
@@ -811,9 +835,9 @@ def phase_reference_train() -> dict:
 PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
     ("flash_bwd_fused_kernel|dq_convert_kernel", "flash attention backward, fused (csrc)"),
     ("flash_fwd_wgmma_kernel", "flash attention fwd, TMA + wgmma (csrc)"),
+    ("flash_fwd_skew_kernel", "flash attention fwd, skewed scores (csrc)"),
     ("flash_fwd_d512_kernel", "flash attention d = 512, TMA + wgmma (csrc)"),
-    ("flash_fwd_kernel", "flash attention (csrc)"),
-    ("single_pass_kernel", "single-pass attention (csrc)"),
+    ("single_pass_wgmma_kernel", "single-pass attention (csrc)"),
     ("conv3x3_wgmma_kernel", "fused conv3x3, TMA + wgmma (csrc)"),
     ("fprop|conv|implicit|winograd", "cuDNN conv"),
     ("gemm|nvjet|xmma|cutlass|sm90", "GEMM"),
@@ -1082,7 +1106,8 @@ def phase_tune(work: Path) -> dict:
               if e["candidates_failed"]}
     if failed or len(table["entries"]) != len(TUNE_SHAPES.split(",")):
         raise AssertionError(f"tune: failed candidates {failed}, {len(table['entries'])} entries")
-    for name in ("flash_fwd_single_pass", "flash_fwd_single_pass_batched", "flash_fwd_two_level"):
+    for name in ("flash_fwd_d64", "flash_fwd_single_pass", "flash_fwd_single_pass_batched",
+                 "flash_fwd_two_level"):
         if not launches[name]:
             raise AssertionError(f"tune: {name} never launched: {launches}")
     return res
@@ -1248,7 +1273,7 @@ def phase_cli(unet, vae, work: Path) -> dict:
         raise AssertionError(f"cli: (got, expected) {wrong}")
     if not math.isfinite(metrics["mean"]["psnr"]):
         raise AssertionError(f"cli: mean PSNR {metrics['mean']}")
-    for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
+    for name in ("flash_fwd_d512", "conv3x3"):  # attention: _check_routes
         if not launches[name]:
             raise AssertionError(f"cli: {name} never launched: {launches}")
     return res
@@ -1556,7 +1581,7 @@ def phase_demo4d(work: Path) -> dict:
     if not math.isfinite(metrics["mean"]["psnr"]):
         raise AssertionError(f"demo4d: mean PSNR {metrics['mean']}")
     for part, launches in (("prefix", launches_a), ("cli", launches_b)):
-        for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
+        for name in ("flash_fwd_d512", "conv3x3"):  # attention: _check_routes
             if not launches[name]:
                 raise AssertionError(f"demo4d {part}: {name} never launched: {launches}")
     return res
@@ -1822,7 +1847,7 @@ def phase_variants(work: Path) -> dict:
                              f"rel L2 {step_rel_l2} (bound {E2E_REL_TOL})")
     for part, launches in (("a1", first["launches"]), ("a2", second["launches"]),
                            ("b", euler_launches)):
-        for name in ("flash_fwd_two_level", "flash_fwd_d512", "conv3x3"):
+        for name in ("flash_fwd_d512", "conv3x3"):  # attention: _check_routes
             if not launches[name]:
                 raise AssertionError(f"variants {part}: {name} never launched: {launches}")
     return res
@@ -2047,24 +2072,36 @@ def _d64_split(shapes) -> dict:
             "flash_fwd_d64_frame": sum(shapes.values()) - window}
 
 
+def _routed(B: int, S: int, Sk: int, H: int, D: int) -> tuple[str, dict]:
+    """The kernel and every block size a launch at this shape takes under
+    ``route``: the route's block sizes over the wrapper's defaults."""
+    import inspect
+
+    from diffuman4d_torch.ops import attention as attn
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    name, params = attn.route((B, S, H, D), (B, Sk, H, D))
+    defaults = inspect.signature(fa.KERNELS[name]).parameters
+    return name, {p: params.get(p, defaults[p].default) for p in fa.BLOCK_PARAMS[name]}
+
+
 def _check_routes(kernels: dict, expected) -> dict:
     """Every attention launch recorded in ``kernels[name].shapes`` must be
     the kernel and block sizes that ``route`` gives its shape, and each
     shape of ``expected`` (B, S, Sk, H, D) must have been launched where it
     routes. Returns {shape: "kernel(blocks)"} of ``expected``."""
-    from diffuman4d_torch.ops import attention as attn
     from diffuman4d_torch.ops import flash_attention as fa
 
     for name, fn in kernels.items():
         for B, S, Sk, H, *blocks in fn.shapes:
             D = 512 if name == "flash_d512" else 64
-            want = attn.route((B, S, H, D), (B, Sk, H, D))
+            want = _routed(B, S, Sk, H, D)
             if want != (name, dict(zip(fa.BLOCK_PARAMS[name], blocks))):
                 raise AssertionError(f"attention B{B} S{S} Sk{Sk} H{H} ran on {name} {blocks}, "
                                      f"the table routes it to {want}")
     routed = {}
     for B, S, Sk, H, D in expected:
-        name, params = attn.route((B, S, H, D), (B, Sk, H, D))
+        name, params = _routed(B, S, Sk, H, D)
         key = (B, S, Sk, H, *params.values())
         if not kernels[name].shapes.get(key):
             raise AssertionError(f"attention {key} routes to {name}, which never ran it")
@@ -2078,35 +2115,37 @@ _FA = "diffuman4d_tpu/ops/flash_attention.py"
 _FB = "diffuman4d_tpu/ops/flash_backward.py"
 # name -> (source, the TPU kernel it replaces, results key of its checks,
 # index of its headline check, phases whose runs count its launches: the
-# first in which it launched; B1/B2 and B10 run on the slice where the table
-# routes a shape to them and on the tune path as candidates, B10 on the CLI
-# path too; the table routes no shape of the CLI path to B1/B2)
+# first in which it launched). The sampling paths (demo4d, cli, slice,
+# variants) launch whatever the committed table routes their shapes to: B10
+# and the skewed-pipeline kernel (B1/B2) at the 3D and per-frame shapes, the
+# single pass (B8) at the per-frame 32^2 level; the tuner launches every
+# candidate.
+PATHS = ("demo4d", "cli", "slice", "variants")
 KERNEL_META = {
-    "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn.cu",
+    "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn_skew_hopper.cu",
                              f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0,
-                             ("slice", "tune")),
-    "flash_fwd_d64_frame": ("diffuman4d_torch/csrc/flash_attn.cu",
+                             (*PATHS, "tune")),
+    "flash_fwd_d64_frame": ("diffuman4d_torch/csrc/flash_attn_skew_hopper.cu",
                             f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
-                            ("slice", "tune")),
+                            (*PATHS, "tune")),
     "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn_d512.cu", f"{_FA}:54 (_flash_kernel)",
-                       "flash_fwd_d512", 0, ("demo4d", "cli", "slice", "variants")),
+                       "flash_fwd_d512", 0, PATHS),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3_hopper.cu",
-                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2,
-                ("demo4d", "cli", "slice", "variants")),
+                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, PATHS),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
                       "flash_fwd_lse", 0, "train"),
     "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",
                   f"{_FB}:162 (_dkdv_kernel) and {_FB}:205 (_dq_kernel)", "flash_bwd", 0,
                   "train"),
-    "flash_fwd_single_pass": ("diffuman4d_torch/csrc/flash_attn_single.cu",
+    "flash_fwd_single_pass": ("diffuman4d_torch/csrc/flash_attn_single_hopper.cu",
                               f"{_FA}:463 (_flash_kernel_v5)", "flash_fwd_single_pass", 0,
-                              "tune"),
-    "flash_fwd_single_pass_batched": ("diffuman4d_torch/csrc/flash_attn_single.cu",
+                              (*PATHS, "tune")),
+    "flash_fwd_single_pass_batched": ("diffuman4d_torch/csrc/flash_attn_single_hopper.cu",
                                       f"{_FA}:530 (_flash_kernel_v6)",
-                                      "flash_fwd_single_pass_batched", 0, "tune"),
+                                      "flash_fwd_single_pass_batched", 0, (*PATHS, "tune")),
     "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn_hopper.cu",
                             f"{_FA}:96 (_flash_kernel_v2)", "flash_fwd_two_level", 0,
-                            ("demo4d", "cli", "slice", "tune", "variants")),
+                            (*PATHS, "tune")),
 }
 
 
@@ -2221,7 +2260,7 @@ def main() -> int:
             "launches": launches, "launches_phase": phase,
             "max_abs_err": max((c["max_abs_err"] for c in checks), default=None),
             **{k: head.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                        "shape")},
+                                        "tflops", "shape")},
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

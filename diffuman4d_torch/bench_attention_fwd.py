@@ -5,25 +5,34 @@ in turns, on one card.
 
 ``DIR`` is the root of another checkout of the repository (for example an
 unpacked ``git archive`` of the parent commit). Its kernel sources under
-``diffuman4d_torch/csrc`` (``flash_attn.cu``, ``flash_attn_hopper.cu``,
-``flash_attn_bwd.cu``, ``conv3x3.cu``, whichever it has) are compiled with
-this tree's ``nvcc`` flags and loaded with ctypes; its C entries
-``flash_attn_fwd`` (B1, and B3 at D = 512 before B3 had its own source),
+``diffuman4d_torch/csrc`` (``flash_attn.cu``, ``flash_attn_single.cu``,
+``flash_attn_hopper.cu``, ``flash_attn_bwd.cu``, ``conv3x3.cu``, whichever
+it has) are compiled with this tree's ``nvcc`` flags and loaded with
+ctypes; its C entries ``flash_attn_fwd`` (the FA2-era B1/B2, and B3 at
+D = 512 before B3 had its own source) and ``flash_attn_single_pass`` (the
+``mma.sync`` B8/B9) take the arguments of :data:`BASELINE_FWD_ENTRIES`,
 ``flash_attn_fwd_two_level`` (B10), ``flash_attn_fwd_lse`` (B5) and
-``conv3x3_fwd`` (B4) take the arguments that this tree's entries of the
-same names take, and its ``flash_attn_bwd_dkdv`` + ``flash_attn_bwd_dq``
-(B6 + B7, the backward before it was fused) those of
-:data:`BASELINE_BWD_ENTRIES`, so both run on the same tensors. For each
-shape the baseline and this tree are timed in the order
-baseline, this tree, this tree, baseline (CUDA events around a few launches
-after a warm-up, the minimum of 3 windows each), and their outputs are
-compared. Rows (``--rows`` picks some; default all):
+``conv3x3_fwd`` (B4) those that this tree's entries of the same names take,
+and its ``flash_attn_bwd_dkdv`` + ``flash_attn_bwd_dq`` (B6 + B7, the
+backward before it was fused) those of :data:`BASELINE_BWD_ENTRIES`, so
+both run on the same tensors. For each shape the baseline and this tree
+are timed in the order baseline, this tree, this tree, baseline (CUDA
+events around a few launches after a warm-up, the minimum of 3 windows
+each), and their outputs are compared. Rows (``--rows`` picks some;
+default all):
 
-* ``b1``: the d = 64 kernel of ``csrc/flash_attn.cu`` in both trees, the
-  control for clock differences (this tree leaves it unchanged);
+* ``b1``: the baseline's FA2 ``flash_attn_fwd`` against this tree's
+  skewed-pipeline B1/B2 (``flash_attention_d64`` at the blocks the table
+  routes the shape to, else its default) at the two hottest sampling
+  shapes;
+* ``b8``: the baseline's ``mma.sync`` single pass (B8 at block_q 64, B9 at
+  block_q 64 and block_b 2) against this tree's (B8 at block_q 128, B9 at
+  block_q 128 and block_b 5) at the per-frame 16^2 mid block, B32 S256 H20;
 * ``b10``: the baseline's B10 at its table's winner against this tree's B10
   at each staging of ``TWO_LEVEL_CONFIGS``, at the two hottest sampling
-  shapes;
+  shapes. The control for clock differences where both trees have the same
+  ``flash_attn_hopper.cu`` and headers (the 192 x 256 x 64 staging is then
+  the same code on both sides);
 * ``b5``: the baseline's B5 against this tree's at ``FWD_LSE_BLOCKS``, and
   this tree's B10 stagings at the same shapes (the sweep that chose
   ``FWD_LSE_BLOCKS``), at the train step's heaviest attention shapes;
@@ -67,8 +76,15 @@ CONV_SHAPES = [(2, 1024, 1024, 128, 128), (2, 512, 512, 256, 256), (2, 256, 256,
                (2, 128, 128, 512, 512), (2, 1024, 1024, 256, 128), (2, 512, 512, 512, 256)]
 CONV_VARIANTS = {"plain": (False, False, False), "affine_silu": (True, True, False),
                  "affine_silu_res": (True, True, True)}
-ROWS = ("b1", "b10", "b5", "bwd", "b3", "b4")
+# (B, S, H) of the per-frame 16^2 mid block, the single pass's heaviest path
+# shape; the baseline's and this tree's B8 block_q and B9 (block_q, block_b)
+B8_SHAPE = (32, 256, 20)
+B8_BLOCKS = {"baseline": ((64, 1), (64, 2)), "this": ((128, 1), (128, 5))}
+ROWS = ("b1", "b8", "b10", "b5", "bwd", "b3", "b4")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the baseline's FA2 forward and mma.sync single pass (this tree has neither)
+BASELINE_FWD_ENTRIES = {"flash_attn_fwd": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+                        "flash_attn_single_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR]}
 # the baseline's two backward entries (this tree has one fused entry instead)
 BASELINE_BWD_ENTRIES = {"flash_attn_bwd_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR],
                         "flash_attn_bwd_dkdv": [_PTR] * 8 + [_INT] * 4 + [_PTR]}
@@ -82,11 +98,13 @@ def _build_baseline(root: Path) -> dict:
 
     csrc = root / "diffuman4d_torch" / "csrc"
     headers = b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
-    types = {n: t for lib in ("flash_attn", "flash_attn_hopper", "conv3x3_hopper")
+    types = {n: t for lib in ("flash_attn_hopper", "conv3x3_hopper")
              for n, t in cuda_build.ENTRIES[lib].items()}
+    types.update(BASELINE_FWD_ENTRIES)
     types.update(BASELINE_BWD_ENTRIES)
     entries = {}
-    for name in ("flash_attn", "flash_attn_hopper", "flash_attn_bwd", "conv3x3"):
+    for name in ("flash_attn", "flash_attn_single", "flash_attn_hopper", "flash_attn_bwd",
+                 "conv3x3"):
         src = csrc / f"{name}.cu"
         if not src.is_file():
             continue
@@ -132,6 +150,7 @@ def _in_turns(base, new, n: int) -> dict:
 def run(baseline: Path, rows=ROWS) -> dict:
     import torch
 
+    from diffuman4d_torch.ops import attention as attn
     from diffuman4d_torch.ops import conv, cuda_build
     from diffuman4d_torch.ops import flash_attention as fa
     from diffuman4d_torch.ops import flash_backward as fb
@@ -166,8 +185,16 @@ def run(baseline: Path, rows=ROWS) -> dict:
                  B, H, S, S, 64)
 
         if "b1" in rows:
-            res["b1"][name] = r = _in_turns(b1_base, lambda: fa.flash_attention_d64(q, k, v), n)
-            log(f"b1 {name}", r)
+            routed, params = attn.route(q.shape, k.shape)
+            blocks = tuple(params.values()) if routed == "flash_d64" else fa.SKEW_DEFAULT
+            res["b1"][name] = r = _in_turns(
+                b1_base, lambda: fa.flash_attention_d64(q, k, v, *blocks), n)
+            b1_base()
+            r["max_abs_diff"] = (fa.flash_attention_d64(q, k, v, *blocks).float()
+                                 - ob.float()).abs().max().item()
+            r["blocks"] = list(blocks)
+            r["tflops"] = flops / (sum(r["this_ms"]) / 2) / 1e9
+            log(f"b1 {name} {blocks}", r)
         if "b10" not in rows:
             del q, k, v, ob
             torch.cuda.empty_cache()
@@ -188,6 +215,31 @@ def run(baseline: Path, rows=ROWS) -> dict:
             res["b10"][name]["x".join(map(str, blocks))] = r
             log(f"b10 {name} {blocks}", r)
         del q, k, v, ob, want
+        torch.cuda.empty_cache()
+
+    if "b8" in rows:
+        B, S, H = B8_SHAPE
+        q, k, v = inputs(B, S, H)
+        ob = torch.empty_like(q)
+        flops = 4.0 * B * H * S * S * 64
+        for (bq_b, bb_b), (bq, bb) in zip(*B8_BLOCKS.values()):
+
+            def b8_base():
+                call("flash_attn_single_pass", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     ob.data_ptr(), B, H, S, S, bq_b, bb_b)
+
+            def b8_this():
+                if bb == 1:
+                    return fa.flash_attention_single_pass(q, k, v, bq)
+                return fa.flash_attention_single_pass_batched(q, k, v, bq, bb)
+
+            key = f"B{B}xS{S}xH{H}:base{bq_b}x{bb_b}:this{bq}x{bb}"
+            res["b8"][key] = r = _in_turns(b8_base, b8_this, 200)
+            b8_base()
+            r["max_abs_diff"] = (b8_this().float() - ob.float()).abs().max().item()
+            r["tflops"] = flops / (sum(r["this_ms"]) / 2) / 1e9
+            log(f"b8 {key}", r)
+        del q, k, v, ob
         torch.cuda.empty_cache()
 
     for name, B, S, H in TRAIN_SHAPES if {"b5", "bwd"} & set(rows) else ():

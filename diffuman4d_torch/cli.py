@@ -17,9 +17,11 @@ unless ``device=cpu`` is given. The output directory receives
 every round and every 24 tasks; a later call on the same output directory
 resumes from it, and one on a finished directory runs no task and exports
 again), with ``sampler.save_debug_grids=true`` ``grids/*.jpg``, and with
-``evaluating=true`` ``metrics.json``. ``sampler.tasks_per_wave`` > 0 and
-``split_cfg_domains`` values other than ``spatial`` / ``temporal`` are
-refused (``ROADMAP.md`` A.7). A checkpoint's scheduler may be DDIM, Euler,
+``evaluating=true`` ``metrics.json``. As in the JAX CLI,
+``sampler.tasks_per_wave`` is read by nothing (a wave's width is the
+number of ranks) and a ``split_cfg_domains`` name other than ``spatial`` /
+``temporal`` changes nothing (the pipeline tests membership only). A
+checkpoint's scheduler may be DDIM, Euler,
 DPM++ or DDPM and its UNet may take pose features or skeleton latents, as in
 the JAX package; DDPM and DDIM with eta > 0 raise ``ValueError`` at the first
 denoising step there and here (``ROADMAP.md`` C).
@@ -40,18 +42,6 @@ log = logging.getLogger("diffuman4d_torch")
 _FORMAT = "[%(asctime)s][%(name)s][%(levelname)s] %(message)s"
 
 
-def _refuse_unported(cfg: RunConfig) -> None:
-    """Options of the JAX CLI the port does not have yet raise, naming the
-    ROADMAP item; none is ignored."""
-    s = cfg.sampler
-    if s.tasks_per_wave:
-        raise NotImplementedError("sampler.tasks_per_wave: task waves are not ported yet "
-                                  "(ROADMAP.md A.7); the port runs tasks one at a time")
-    if unknown := set(s.split_cfg_domains or ()) - {"spatial", "temporal"}:
-        raise NotImplementedError(f"sampler.split_cfg_domains {sorted(unknown)}: the port "
-                                  f"splits CFG in the 'spatial' and 'temporal' domains only")
-
-
 def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format=_FORMAT)
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -69,7 +59,6 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
     cfg = build_config(argv)
-    _refuse_unported(cfg)
     print(config_tree(cfg))
 
     os.makedirs(cfg.sampler.output_dir, exist_ok=True)

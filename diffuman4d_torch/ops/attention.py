@@ -52,10 +52,11 @@ from diffuman4d_torch.ops.flash_backward import flash_attention_train
 log = logging.getLogger(__name__)
 
 TABLE_PATH = Path(__file__).resolve().parent / "attention_table.json"
-# the CUDA sources of the table's candidates (B1/B2/B3, B8/B9 and B10) and
+# the CUDA sources of the table's candidates (B1/B2, B3, B8/B9 and B10) and
 # the headers they include; the training kernels are not dispatched by it
-KERNEL_SOURCES = ("flash_attn.cu", "flash_attn_d512.cu", "flash_attn_single.cu",
-                  "flash_attn_hopper.cu", "mma_common.cuh", "hopper_common.cuh")
+KERNEL_SOURCES = ("flash_attn_skew_hopper.cu", "flash_attn_d512.cu",
+                  "flash_attn_single_hopper.cu", "flash_attn_hopper.cu", "mma_common.cuh",
+                  "hopper_common.cuh")
 DEFAULT_KERNEL = {64: "flash_d64", 512: "flash_d512"}
 
 _TABLE: list[dict] | None = None
@@ -137,9 +138,11 @@ def route(q_shape, k_shape) -> tuple[str, dict]:
             bb = e["block_b"]
             if (b * h) % bb == 0 and fa.single_pass_ok(sk, bq, d, bb):
                 return impl, {"block_q": bq, "block_b": bb}
-        if impl == "two_level" and fa.two_level_ok(d, bq, e["block_k_major"], e["block_k"]):
-            return impl, {"block_q": bq, "block_k_major": e["block_k_major"],
-                          "block_k": e["block_k"]}
+        if impl in ("two_level", "flash_d64"):
+            blocks = (bq, e.get("block_k_major"), e["block_k"])
+            built = fa.two_level_ok if impl == "two_level" else fa.skew_ok
+            if built(d, *blocks):
+                return impl, dict(zip(fa.BLOCK_PARAMS[impl], blocks))
     return DEFAULT_KERNEL[d], {}
 
 

@@ -26,14 +26,14 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # library -> {C entry point: its argument types}: pointers and the stream
 # as void*, sizes as int
 ENTRIES = {
-    "flash_attn": {"flash_attn_fwd": [_PTR] * 4 + [_INT] * 5 + [_PTR]},
+    "flash_attn_skew_hopper": {"flash_attn_fwd_skew": [_PTR] * 4 + [_INT] * 7 + [_PTR]},
     "flash_attn_d512": {"flash_attn_fwd_d512": [_PTR] * 4 + [_INT] * 4 + [_PTR]},
     "flash_attn_hopper": {
         "flash_attn_fwd_two_level": [_PTR] * 4 + [_INT] * 7 + [_PTR],
         "flash_attn_fwd_lse": [_PTR] * 5 + [_INT] * 4 + [_PTR],
         "flash_attn_hopper_probe": [_PTR] * 6,
     },
-    "flash_attn_single": {"flash_attn_single_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR]},
+    "flash_attn_single_hopper": {"flash_attn_single_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR]},
     "conv3x3_hopper": {"conv3x3_fwd": [_PTR] * 7 + [_INT] * 6 + [_PTR]},
     "flash_attn_bwd": {
         "flash_attn_bwd_fused": [_PTR] * 11 + [_INT] * 4 + [_PTR],

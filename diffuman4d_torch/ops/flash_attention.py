@@ -1,23 +1,31 @@
 """Flash attention on Hopper, with its plain PyTorch version beside it.
 
 Counterpart of ``diffuman4d_tpu/ops/flash_attention.py``. Five wrappers
-launch the kernels of ``csrc/flash_attn.cu``, ``csrc/flash_attn_d512.cu``,
-``csrc/flash_attn_single.cu`` and ``csrc/flash_attn_hopper.cu``:
+launch the kernels of ``csrc/flash_attn_skew_hopper.cu``,
+``csrc/flash_attn_d512.cu``, ``csrc/flash_attn_single_hopper.cu`` and
+``csrc/flash_attn_hopper.cu``, all TMA / wgmma kernels:
 
 * :func:`flash_attention_d64` replaces ``flash_attention_v4`` (the UNet's
   3D window attention) and ``flash_attention_v3`` (its per-frame
-  attention); both compute the same function at head dim 64.
+  attention); both compute the same function at head dim 64. Their skewed
+  score pipeline: ``block_q`` query rows per block (64 per consumer
+  warpgroup), K/V tiles of ``block_k_major`` keys per TMA stage, two
+  score buffers of ``block_k`` keys, the next chunk's ``Q K^T`` running
+  under this chunk's softmax.
 * :func:`flash_attention_d512` replaces ``flash_attention`` (v1), the VAE
   mid-block attention at head dim 512.
-* :func:`flash_attention_single_pass` replaces ``flash_attention_v5``: the
-  whole key sequence in one block, no online softmax (Sk <= 256).
+* :func:`flash_attention_single_pass` replaces ``flash_attention_v5``: each
+  (batch, head) row's K and V loaded once for all its query tiles, one
+  pass of ``block_q`` (64 or 128) query rows at a time, no online softmax
+  up to 256 keys (one rescale per further 256 keys, Sk <= 4,096).
 * :func:`flash_attention_single_pass_batched` replaces
   ``flash_attention_v6``: the same with ``block_b`` (batch * head) rows per
-  thread block.
-* :func:`flash_attention_two_level` replaces ``flash_attention_v2``: the
-  TMA / wgmma kernel, ``block_q`` query rows per block (64 per consumer
-  warpgroup), K/V tiles of ``block_k_major`` keys per TMA stage, ``Q K^T``
-  in chunks of ``block_k`` keys.
+  thread block, walked in turn, the next row's loads under this row's work
+  (in the JAX package ``block_b`` rows are one program's block).
+* :func:`flash_attention_two_level` replaces ``flash_attention_v2``:
+  ``block_q`` query rows per block (64 per consumer warpgroup), K/V tiles
+  of ``block_k_major`` keys per TMA stage, ``Q K^T`` in chunks of
+  ``block_k``.
 
 Semantics (all five): O = softmax(Q K^T / sqrt(d)) V per (batch, head) on
 ``(B, S, H, D)``, non-causal, unmasked, the exact scale applied to fp32
@@ -39,16 +47,19 @@ import torch
 
 from diffuman4d_torch.ops import cuda_build
 
-# shared memory one thread block can have on the H100 (bytes)
-SMEM_PER_BLOCK = 232_448
-# single pass (B8/B9): query rows per (batch, head) row and block, i.e. 1, 2,
-# 4 or 8 warps of 16 rows; the whole key sequence in registers and shared
-# memory, so Sk <= 256; at most 8 warps per block
-SINGLE_PASS_BLOCK_Q = (16, 32, 64, 128)
-SINGLE_PASS_MAX_SK = 256
-SINGLE_PASS_MAX_WARPS = 8
-# two-level (B10): the (block_q, block_k_major, block_k) built in
-# csrc/flash_attn_hopper.cu
+# single pass (B8/B9): query rows per pass (one or two consumer warpgroups
+# of 64); the kernel takes keys in chunks of 256 (128 when Sk <= 128) and
+# keeps the row's chunks in a ring of shared-memory slots, so its
+# registers (128 fp32 scores per thread) and shared memory (a fixed layout
+# of at most 230,504 bytes per instance) do not grow with Sk; Sk <= 4,096,
+# the reference's largest single-pass candidate
+SINGLE_PASS_BLOCK_Q = (64, 128)
+SINGLE_PASS_MAX_SK = 4096
+# skewed pipeline (B1/B2) and two-level (B10): the (block_q, block_k_major,
+# block_k) built in csrc/flash_attn_skew_hopper.cu and csrc/flash_attn_hopper.cu
+SKEW_CONFIGS = ((64, 128, 64), (128, 128, 64), (128, 256, 64), (128, 256, 128),
+                (192, 128, 64), (192, 256, 64))
+SKEW_DEFAULT = (192, 256, 64)
 TWO_LEVEL_CONFIGS = ((64, 128, 64), (64, 256, 64), (64, 256, 128),
                      (128, 128, 64), (128, 256, 64), (128, 256, 128),
                      (192, 128, 64), (192, 256, 64))
@@ -56,19 +67,21 @@ TWO_LEVEL_CONFIGS = ((64, 128, 64), (64, 256, 64), (64, 256, 128),
 
 def single_pass_ok(sk: int, block_q: int, d: int = 64, block_b: int = 1) -> bool:
     """Whether the single-pass kernel (B8, and B9 with ``block_b`` > 1) was
-    built for this launch: head dim 64, 1 <= Sk <= 256 keys (their 16 x Sk
-    fp32 scores per warp live in registers), ``block_q`` one of
-    :data:`SINGLE_PASS_BLOCK_Q`, at most 8 warps per block, and each row's Q
-    tile, K and V (K/V padded to 128 or 256 keys) within a block's shared
-    memory. The dispatcher and the tuner both ask it, so a nearest-match
-    table lookup never routes a shape to a launch that fails (the role of
-    the JAX package's ``v5_vmem_ok``)."""
-    if d != 64 or not 1 <= sk <= SINGLE_PASS_MAX_SK or block_b < 1:
-        return False
-    if block_q not in SINGLE_PASS_BLOCK_Q or block_q // 16 * block_b > SINGLE_PASS_MAX_WARPS:
-        return False
-    sk_max = 128 if sk <= 128 else 256
-    return block_b * (block_q + 2 * sk_max) * d * 2 <= SMEM_PER_BLOCK
+    built for this launch: head dim 64, 1 <= Sk <= 4,096 keys, ``block_q``
+    one of :data:`SINGLE_PASS_BLOCK_Q`, ``block_b`` >= 1. Its registers and
+    shared memory are fixed per ``block_q`` whatever Sk is (scores in
+    chunks of 256 keys, K/V through a ring of chunk slots), so these are
+    all its limits. The dispatcher and the tuner both ask it, so a
+    nearest-match table lookup never routes a shape to a launch that fails
+    (the role of the JAX package's ``v5_vmem_ok``)."""
+    return (d == 64 and 1 <= sk <= SINGLE_PASS_MAX_SK and block_q in SINGLE_PASS_BLOCK_Q
+            and block_b >= 1)
+
+
+def skew_ok(d: int, block_q: int, block_k_major: int, block_k: int) -> bool:
+    """Whether the skewed-pipeline kernel (B1/B2) was built for these block
+    sizes (head dim 64, any Sq and Sk: ragged edges are masked)."""
+    return d == 64 and (block_q, block_k_major, block_k) in SKEW_CONFIGS
 
 
 def two_level_ok(d: int, block_q: int, block_k_major: int, block_k: int) -> bool:
@@ -100,7 +113,7 @@ def _check_shapes(q, k, v, head_dim: int) -> None:
 
 
 def _launch(wrapper, q, k, v, fn_name: str, c_args: tuple, blocks: tuple = (),
-            lib: str = "flash_attn"):
+            lib: str = "flash_attn_skew_hopper"):
     """Launch C entry ``fn_name`` of library ``lib`` on (q, k, v, out, B, H,
     Sq, Sk, *c_args, stream) and count it under ``(B, Sq, Sk, H, *blocks)``."""
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -125,13 +138,23 @@ def _launch(wrapper, q, k, v, fn_name: str, c_args: tuple, blocks: tuple = (),
     return out
 
 
-def flash_attention_d64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention_d64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        block_q: int = SKEW_DEFAULT[0], block_k_major: int = SKEW_DEFAULT[1],
+                        block_k: int = SKEW_DEFAULT[2]) -> torch.Tensor:
     """Head dim 64 (TPU kernels B1 ``_flash_kernel_v4`` and B2
-    ``_flash_kernel_v3``). bf16 CUDA tensors launch the kernel."""
+    ``_flash_kernel_v3``): the skewed score pipeline, ``block_q`` query rows
+    per block, K/V tiles of ``block_k_major`` keys, two score buffers of
+    ``block_k`` keys. Raises for block sizes not in :data:`SKEW_CONFIGS`;
+    any Sq and Sk. bf16 CUDA tensors launch the kernel."""
     _check_shapes(q, k, v, 64)
+    if not skew_ok(64, block_q, block_k_major, block_k):
+        raise ValueError(f"skewed attention: not built for blocks ({block_q}, "
+                         f"{block_k_major}, {block_k}); have {SKEW_CONFIGS}")
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _launch(flash_attention_d64, q, k, v, "flash_attn_fwd", (64,))
+    blocks = (block_q, block_k_major, block_k)
+    return _launch(flash_attention_d64, q, k, v, "flash_attn_fwd_skew", blocks, blocks,
+                   lib="flash_attn_skew_hopper")
 
 
 def flash_attention_d512(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -145,25 +168,27 @@ def flash_attention_d512(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 
 
 def flash_attention_single_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                block_q: int = 64) -> torch.Tensor:
-    """Single KV pass at head dim 64 (TPU kernel B8 ``_flash_kernel_v5``):
-    ``block_q`` query rows per block, the whole key sequence at once. Raises
-    where :func:`single_pass_ok` refuses the launch."""
+                                block_q: int = 128) -> torch.Tensor:
+    """Single pass at head dim 64 (TPU kernel B8 ``_flash_kernel_v5``): one
+    (batch, head) row per block, its K and V loaded once for all its
+    passes of ``block_q`` query rows. Raises where :func:`single_pass_ok`
+    refuses the launch."""
     _check_shapes(q, k, v, 64)
     if not single_pass_ok(k.shape[1], block_q):
         raise ValueError(f"single-pass attention: not built for Sk={k.shape[1]}, "
-                         f"block_q={block_q} (Sk <= {SINGLE_PASS_MAX_SK}, block_q in "
+                         f"block_q={block_q} (1 <= Sk <= {SINGLE_PASS_MAX_SK}, block_q in "
                          f"{SINGLE_PASS_BLOCK_Q})")
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     return _launch(flash_attention_single_pass, q, k, v, "flash_attn_single_pass",
-                   (block_q, 1), (block_q,), lib="flash_attn_single")
+                   (block_q, 1), (block_q,), lib="flash_attn_single_hopper")
 
 
 def flash_attention_single_pass_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                        block_q: int = 32, block_b: int = 2) -> torch.Tensor:
-    """The single pass over ``block_b`` (batch * head) rows per block (TPU
-    kernel B9 ``_flash_kernel_v6``). ``block_b`` must divide B * H."""
+                                        block_q: int = 128, block_b: int = 2) -> torch.Tensor:
+    """The single pass over ``block_b`` (batch * head) rows per block, each
+    row's loads under the previous row's work (TPU kernel B9
+    ``_flash_kernel_v6``). ``block_b`` must divide B * H."""
     _check_shapes(q, k, v, 64)
     bh = q.shape[0] * q.shape[2]
     if bh % block_b:
@@ -175,7 +200,7 @@ def flash_attention_single_pass_batched(q: torch.Tensor, k: torch.Tensor, v: tor
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     return _launch(flash_attention_single_pass_batched, q, k, v, "flash_attn_single_pass",
-                   (block_q, block_b), (block_q, block_b), lib="flash_attn_single")
+                   (block_q, block_b), (block_q, block_b), lib="flash_attn_single_hopper")
 
 
 def flash_attention_two_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -205,7 +230,8 @@ KERNELS = {
     "single_pass_batched": flash_attention_single_pass_batched,
     "two_level": flash_attention_two_level,
 }
-BLOCK_PARAMS = {"flash_d64": (), "flash_d512": (), "single_pass": ("block_q",),
+BLOCK_PARAMS = {"flash_d64": ("block_q", "block_k_major", "block_k"), "flash_d512": (),
+                "single_pass": ("block_q",),
                 "single_pass_batched": ("block_q", "block_b"),
                 "two_level": ("block_q", "block_k_major", "block_k")}
 # each wrapper counts its launches, in total and per (B, Sq, Sk, H, *blocks)

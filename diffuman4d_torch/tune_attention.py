@@ -14,10 +14,11 @@ per shape, so a partial sweep keeps the other entries (each with its own
 kernel-source stamp). ``--verify`` re-measures the two highest-TFLOP/s
 entries of the existing table and exits 1 if one lost more than 10%.
 
-Candidates per shape: the port's kernel of the head dim (``flash_d64``, or
-``flash_d512``), the two-level kernel (B10) at each built staging, the
-single-pass kernel (B8) at each ``block_q`` that ``single_pass_ok`` admits
-and its batched form (B9) at each admitted (``block_q``, ``block_b``) with
+Candidates per shape: at d = 512 the port's kernel of the head dim
+(``flash_d512``); at d = 64 the skewed-pipeline kernel (``flash_d64``, B1/B2)
+and the two-level kernel (B10) at each built staging, the single-pass
+kernel (B8) at each ``block_q`` that ``single_pass_ok`` admits and its
+batched form (B9) at each admitted (``block_q``, ``block_b``) with
 ``block_b`` < b*h. There is no plain and no library candidate; PyTorch's
 ``scaled_dot_product_attention`` is timed per shape as a yardstick column
 of the printed results only. Each candidate is timed with CUDA events
@@ -55,7 +56,7 @@ HOT_SHAPES = [
 ]
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
 PEAK_BF16_FLOPS = 989e12
-BATCHED_BLOCK_B = (2, 4)
+BATCHED_BLOCK_B = (2, 4, 5, 8)
 DEFAULT_OUT = Path(__file__).resolve().parent / "ops" / "attention_table.json"
 
 
@@ -64,7 +65,11 @@ def candidates(b: int, s: int, h: int, d: int) -> dict[str, tuple[str, dict]]:
     (b, s, h, d)."""
     from diffuman4d_torch.ops import flash_attention as fa
 
-    out = {f"flash_d{d}": (f"flash_d{d}", {})} if d in (64, 512) else {}
+    out = {"flash_d512": ("flash_d512", {})} if d == 512 else {}
+    for bq, kmaj, kin in fa.SKEW_CONFIGS:
+        if fa.skew_ok(d, bq, kmaj, kin):
+            out[f"flash_d64_{bq}x{kmaj}x{kin}"] = (
+                "flash_d64", {"block_q": bq, "block_k_major": kmaj, "block_k": kin})
     for bq, kmaj, kin in fa.TWO_LEVEL_CONFIGS:
         if fa.two_level_ok(d, bq, kmaj, kin):
             out[f"two_level_{bq}x{kmaj}x{kin}"] = (

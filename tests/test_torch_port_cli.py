@@ -1,4 +1,4 @@
-"""The port's CLI end to end against the JAX package, and its refusals.
+"""The port's CLI end to end against the JAX package.
 
 One tiny synthetic scene (6 cameras x 2 frames at 64^2, inputs [0, 3]),
 window 2, two alternation rounds (spatial, then temporal with split CFG),
@@ -65,7 +65,8 @@ def _files(root: Path) -> list[str]:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(JAX output dir, port output dir, JAX decodes, port decodes, rc)."""
+    """(JAX output dir, port output dir, JAX decodes, port decodes, rc, JAX
+    pipeline)."""
     from diffuman4d_tpu.configs.presets import build_config as jbuild_config
     from diffuman4d_tpu.data.dataset import SpaTemDataset as JDataset
     from diffuman4d_tpu.data.metrics import evaluate_results as jevaluate
@@ -118,19 +119,27 @@ def runs(tmp_path_factory):
     pdecoded: list = []
     pdecode = Diffuman4DPipeline.decode
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(Diffuman4DPipeline, "init_noise", lambda self, spa, tem, seed:
-                   torch.from_numpy(np.array(jpipe.init_noise(spa, tem, seed))))
-        mp.setattr(Diffuman4DPipeline, "posterior_noise", lambda self, labels: torch.stack([
-            torch.from_numpy(np.array(jax.random.normal(
-                jpipe._frame_key(lb), (LATENT, LATENT, 4)))) for lb in labels]))
+        _inject_jax_noise(mp, jpipe)
         mp.setattr(Diffuman4DPipeline, "decode", lambda self, latents:
                    pdecoded.append(pdecode(self, latents)) or pdecoded[-1])
         rc = cli.main(args + [f"sampler.output_dir={port_out}", "device=cpu"])
-    return jax_out, port_out, jdecoded, pdecoded, rc
+    return jax_out, port_out, jdecoded, pdecoded, rc, jpipe
+
+
+def _inject_jax_noise(mp, jpipe) -> None:
+    """The port's pipeline draws the JAX pipeline's initial and posterior
+    noise (``ROADMAP.md`` C.4)."""
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+
+    mp.setattr(Diffuman4DPipeline, "init_noise", lambda self, spa, tem, seed:
+               torch.from_numpy(np.array(jpipe.init_noise(spa, tem, seed))))
+    mp.setattr(Diffuman4DPipeline, "posterior_noise", lambda self, labels: torch.stack([
+        torch.from_numpy(np.array(jax.random.normal(
+            jpipe._frame_key(lb), (LATENT, LATENT, 4)))) for lb in labels]))
 
 
 def test_cli_writes_the_jax_package_files(runs):
-    jax_out, port_out, _, _, rc = runs
+    jax_out, port_out, _, _, rc, _ = runs
     assert rc == 0
     files = _files(port_out)
     assert files == _files(jax_out)
@@ -151,7 +160,7 @@ def test_cli_writes_the_jax_package_files(runs):
 def test_cli_grid_state_matches_jax(runs):
     from diffuman4d_torch.io.gridstate import read_state
 
-    jax_out, port_out, _, _, _ = runs
+    jax_out, port_out, _, _, _, _ = runs
     meta, got = read_state(str(port_out / "state" / "grid_state.d4d"))
     jmeta, want = read_state(str(jax_out / "state" / "grid_state.d4d"))
     assert meta == jmeta == {"seed": 0, "completed_rounds": 2, "tasks_done_in_round": 0,
@@ -172,7 +181,7 @@ def test_cli_on_a_finished_directory_resumes_and_exports_again(runs, tmp_path, c
 
     from diffuman4d_torch import cli
 
-    _, port_out, _, _, _ = runs
+    _, port_out, _, _, _, _ = runs
     out = tmp_path / "again"
     shutil.copytree(port_out, out)
     before = {rel: (out / rel).read_bytes() for rel in _files(out)
@@ -197,7 +206,7 @@ def test_cli_debug_grids_write_the_jax_package_files(runs, tmp_path):
     from diffuman4d_tpu.sampling.sampler import SlidingIterativeSampler as JSampler
     from diffuman4d_torch import cli
 
-    _, port_out, _, _, _ = runs
+    _, port_out, _, _, _, _ = runs
     args = _cli_args(port_out) + ["sampler.save_debug_grids=true", "evaluating=false",
                                   "to_nerfstudio=false"]
     cfg = jbuild_config(args + [f"sampler.output_dir={tmp_path / 'jax'}"])
@@ -219,7 +228,7 @@ def test_cli_debug_grids_write_the_jax_package_files(runs, tmp_path):
 
 
 def test_cli_images_match_jax(runs):
-    jax_out, port_out, jdecoded, pdecoded, _ = runs
+    jax_out, port_out, jdecoded, pdecoded, _, _ = runs
     # the temporal round decodes its 4 target cameras' 2 frames each
     assert len(pdecoded) == len(jdecoded) == 4
     got, want = np.concatenate(pdecoded).astype(int), np.concatenate(jdecoded).astype(int)
@@ -235,7 +244,7 @@ def test_cli_images_match_jax(runs):
 
 
 def test_cli_metrics_match_jax(runs):
-    jax_out, port_out, _, _, _ = runs
+    jax_out, port_out, _, _, _, _ = runs
     got = json.loads((port_out / "metrics.json").read_text())
     want = json.loads((jax_out / "metrics.json").read_text())
     assert [v["key"] for v in got["values"]] == [v["key"] for v in want["values"]]
@@ -264,16 +273,38 @@ def test_cli_without_a_card_exits_and_never_runs_on_the_cpu(tmp_path, monkeypatc
     assert not out.exists()
 
 
-@pytest.mark.parametrize("override,item", [
-    ("sampler.tasks_per_wave=2", "A.7"),
-    ("sampler.split_cfg_domains=[spatial,frames]", "'spatial' and 'temporal'"),
-])
-def test_cli_refuses_options_not_ported(tmp_path, monkeypatch, override, item):
+@pytest.mark.parametrize("override", ["sampler.tasks_per_wave=2",
+                                      "sampler.split_cfg_domains=[spatial,frames]"])
+def test_cli_refuses_options_not_ported(runs, tmp_path, override):
+    """Two overrides that the JAX CLI runs and the port's CLI refused until
+    it gained them: ``tasks_per_wave`` is read by nothing there, and its
+    pipeline only tests ``split_cfg_domains`` for membership (so
+    ``[spatial,frames]`` splits the spatial CFG and fuses the temporal one:
+    the same function in another batching). The port's CLI with each, the
+    JAX draws injected, refuses neither and writes the JAX CLI's files and
+    its grid state."""
+    from diffuman4d_tpu.configs.presets import build_config as jbuild_config
     from diffuman4d_torch import cli
-    from diffuman4d_torch.sampling import loader
+    from diffuman4d_torch.io.gridstate import read_state
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
 
-    monkeypatch.setattr(loader, "load_pipeline", lambda *a, **k: pytest.fail("ran"))
-    out = tmp_path / "out"
-    args = ARGS + [f"sampler.output_dir={out}", "device=cpu", override]
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        cli.main(args)
+    jax_out, port_out, _, _, _, jpipe = runs
+    jcfg = jbuild_config(_cli_args(port_out) + [override])
+    pipes: list = []
+    init = Diffuman4DPipeline.__init__
+    out = tmp_path / "port"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Diffuman4DPipeline, "__init__", lambda self, *a, **k:
+                   init(self, *a, **k) or pipes.append(self))
+        _inject_jax_noise(mp, jpipe)
+        assert cli.main(_cli_args(port_out) + [f"sampler.output_dir={out}", "device=cpu",
+                                               override]) == 0
+    assert pipes and set(pipes[0].sliding.split_cfg_domains) == set(jcfg.sampler.split_cfg_domains)
+    assert _files(out) == _files(jax_out)
+    for name in ("transforms.json", "transforms_input.json", "export_manifest.json"):
+        assert json.loads((out / name).read_text()) == json.loads((jax_out / name).read_text())
+    meta, got = read_state(str(out / "state" / "grid_state.d4d"))
+    jmeta, want = read_state(str(jax_out / "state" / "grid_state.d4d"))
+    assert meta == jmeta
+    np.testing.assert_array_equal(got["t_idx"], want["t_idx"])
+    np.testing.assert_allclose(got["latents"], want["latents"], rtol=0, atol=LATENT_ATOL)

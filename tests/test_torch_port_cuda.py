@@ -47,7 +47,8 @@ def test_flash_attention_matches_plain(gen, shape):
     got = fn(q, k, v).float()
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    assert (shape[0], shape[1], shape[1], shape[2]) in fn.shapes
+    blocks = fa.SKEW_DEFAULT if shape[-1] == 64 else ()
+    assert (shape[0], shape[1], shape[1], shape[2], *blocks) in fn.shapes
     want = fa.attention_plain(q, k, v).float()
     # bf16 output; the kernel rounds the unnormalised P to bf16 where the
     # plain version rounds the normalised one: each batch row within 4 bf16
@@ -97,10 +98,12 @@ def _batch_row_rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H", [(2, 77, 77, 3), (2, 130, 200, 2), (3, 256, 256, 1),
-                                       (2, 300, 17, 2)])
-@pytest.mark.parametrize("block_q", [16, 32, 64, 128])
+                                       (2, 300, 17, 2), (2, 200, 600, 2), (1, 1024, 1024, 2),
+                                       (2, 90, 1000, 1), (1, 130, 4096, 2)])
+@pytest.mark.parametrize("block_q", [64, 128])
 def test_flash_single_pass_matches_plain(gen, B, Sq, Sk, H, block_q):
-    """B8 at every block_q, ragged, Sq != Sk, both key paddings (128, 256)."""
+    """B8 at both block_q, ragged, Sq != Sk, both chunk sizes (128, 256),
+    rows resident in shared memory (Sk <= 768) and streamed (Sk > 768)."""
     from diffuman4d_torch.ops import flash_attention as fa
 
     q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
@@ -116,10 +119,13 @@ def test_flash_single_pass_matches_plain(gen, B, Sq, Sk, H, block_q):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H,block_q,block_b", [
-    (2, 50, 256, 3, 32, 2), (2, 50, 256, 3, 32, 3), (2, 100, 90, 3, 16, 6),
-    (4, 64, 128, 2, 64, 2), (1, 33, 120, 8, 16, 4)])
+    (2, 50, 256, 3, 64, 2), (2, 50, 256, 3, 128, 3), (2, 100, 90, 3, 64, 6),
+    (4, 64, 128, 2, 128, 2), (1, 33, 120, 8, 64, 4), (2, 300, 700, 5, 128, 5),
+    (4, 1024, 1024, 2, 128, 8), (2, 257, 1500, 2, 64, 2)])
 def test_flash_single_pass_batched_matches_plain(gen, B, Sq, Sk, H, block_q, block_b):
-    """B9: block_b rows of (batch, head) per block, block_b dividing only B*H."""
+    """B9: block_b rows of (batch, head) per block, block_b dividing only
+    B*H; rows resident (the next row's loads under this row's work) and
+    streamed."""
     from diffuman4d_torch.ops import flash_attention as fa
 
     q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
@@ -128,6 +134,50 @@ def test_flash_single_pass_batched_matches_plain(gen, B, Sq, Sk, H, block_q, blo
     torch.cuda.synchronize()
     assert (B, Sq, Sk, H, block_q, block_b) in fn.shapes
     assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(64, 128, 64), (128, 128, 64), (128, 256, 64),
+                                    (128, 256, 128), (192, 128, 64), (192, 256, 64)])
+@pytest.mark.parametrize("B,Sq,Sk,H", [(2, 300, 530, 2), (2, 64, 64, 1), (1, 1000, 1000, 2),
+                                       (1, 77, 2100, 2), (2, 500, 40, 1)])
+def test_flash_skew_matches_plain(gen, blocks, B, Sq, Sk, H):
+    """B1/B2 at every built staging: ragged k-major tiles, Sq != Sk, an odd
+    and an even number of score chunks, one chunk only."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    q, k, v = _attn_inputs(gen, B, Sq, Sk, H)
+    fn = fa.flash_attention_d64
+    got = fn(q, k, v, *blocks)
+    torch.cuda.synchronize()
+    assert (B, Sq, Sk, H, *blocks) in fn.shapes
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,params", [
+    ("flash_d64", {"block_q": 128, "block_k_major": 128, "block_k": 64}),
+    ("flash_d64", {"block_q": 192, "block_k_major": 256, "block_k": 64}),
+    ("single_pass", {"block_q": 64}), ("single_pass_batched", {"block_q": 128, "block_b": 2})])
+def test_new_kernels_keep_to_each_batch_with_large_logits(gen, kernel, params):
+    """B1/B2 and B8/B9 on B = 4 batches of different scale, K and V followed
+    by NaN in memory, Sq != Sk, then on logits of order 100 (q and k scaled
+    by 6): finite, each batch within the bound."""
+    from diffuman4d_torch.ops import flash_attention as fa
+
+    fn = fa.KERNELS[kernel]
+    q, k, v = _per_batch_scaled_inputs(gen, 4, 190, 333, 2)
+    got = fn(q, k, v, **params)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _batch_row_rel_err(got, fa.attention_plain(q, k, v)) <= 2 ** -5
+    q = _randn(gen, 2, 70, 2, 64, scale=6.0).bfloat16()
+    k = _randn(gen, 2, 530, 2, 64, scale=6.0).bfloat16()
+    v = _randn(gen, 2, 530, 2, 64).bfloat16()
+    got = fn(q, k, v, **params).float()
+    want = fa.attention_plain(q, k, v).float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2 ** -5 * want.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -225,10 +275,15 @@ def test_single_pass_and_two_level_refuse_what_they_were_not_built_for(gen):
     from diffuman4d_torch.ops import flash_attention as fa
 
     q = _randn(gen, 1, 300, 2, 64).bfloat16()
+    long = _randn(gen, 1, 4100, 1, 64).bfloat16()
     with pytest.raises(ValueError):
-        fa.flash_attention_single_pass(q, q, q)  # Sk 300 > 256
+        fa.flash_attention_single_pass(long, long, long)  # Sk 4,100 > 4,096
     with pytest.raises(ValueError):
-        fa.flash_attention_single_pass_batched(q[:, :64], q[:, :64], q[:, :64], 32, 3)
+        fa.flash_attention_single_pass(q, q, q, block_q=32)
+    with pytest.raises(ValueError):
+        fa.flash_attention_single_pass_batched(q[:, :64], q[:, :64], q[:, :64], 64, 3)
+    with pytest.raises(ValueError):
+        fa.flash_attention_d64(q, q, q, 64, 256, 128)
     with pytest.raises(ValueError):
         fa.flash_attention_two_level(q, q, q, 64, 512, 64)
     with pytest.raises(ValueError):

@@ -2,7 +2,8 @@
 
 * The single-pass (B8), batched single-pass (B9) and two-level (B10)
   wrappers on CPU tensors (their plain version) against JAX
-  ``flash_attention_v5`` / ``_v6`` / ``_v2`` in Pallas interpret mode, at
+  ``flash_attention_v5`` / ``_v6`` / ``_v2`` in Pallas interpret mode (B1/B2
+  in ``test_torch_port_attention_d64.py``), at
   the JAX package's own tolerance of 2e-5 (``tests/test_flash_interpret.py``).
 * ``_table_lookup`` and ``route`` against the JAX dispatcher on the same
   entries; the staleness and incomplete-sweep warnings of the port's table
@@ -49,10 +50,12 @@ def _qkv(seed, b, sq, sk, h, d=64):
 
 
 # ------------------------------------------------- (a) the kernels' wrappers
-@pytest.mark.parametrize("sq,sk,bq", [(256, 256, 64), (128, 256, 32), (256, 128, 128),
-                                      (64, 64, 16)])
+@pytest.mark.parametrize("sq,sk,bq", [(256, 256, 64), (128, 256, 128), (256, 128, 128),
+                                      (64, 64, 64), (512, 512, 128), (128, 1024, 64),
+                                      (100, 1000, 128)])
 def test_single_pass_matches_jax_v5(sq, sk, bq):
-    """B8, Sq != Sk included, against v5 at the same block_q."""
+    """B8, Sq != Sk included, against v5 at the same block_q, out to 1,024
+    keys; ragged Sk (1,000) and ragged Sq (100, one block of v5's)."""
     q, k, v = _qkv(0, 2, sq, sk, 2)
     with pltpu.force_tpu_interpret_mode():
         want = jfa.flash_attention_v5(j(q), j(k), j(v), block_q=bq)
@@ -60,11 +63,13 @@ def test_single_pass_matches_jax_v5(sq, sk, bq):
     np.testing.assert_allclose(n(got), n(want), rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("seq,bq,bb", [(256, 64, 2), (256, 32, 3), (128, 16, 6)])
-def test_single_pass_batched_matches_jax_v6(seq, bq, bb):
+@pytest.mark.parametrize("sq,sk,bq,bb", [(256, 256, 64, 2), (256, 256, 128, 3), (128, 128, 64, 6),
+                                         (512, 512, 128, 2), (640, 1000, 64, 3),
+                                         (1024, 1024, 128, 6)])
+def test_single_pass_batched_matches_jax_v6(sq, sk, bq, bb):
     """B9 with block_b dividing b*h = 6 but not b = 2 (block_b 3, 6) or not
-    h = 3 (block_b 2, 6) alone."""
-    q, k, v = _qkv(1, 2, seq, seq, 3)
+    h = 3 (block_b 2, 6) alone, out to 1,024 keys, ragged Sk (1,000)."""
+    q, k, v = _qkv(1, 2, sq, sk, 3)
     with pltpu.force_tpu_interpret_mode():
         want = jfa.flash_attention_v6(j(q), j(k), j(v), block_q=bq, block_b=bb)
     got = fa.flash_attention_single_pass_batched(t(q), t(k), t(v), block_q=bq, block_b=bb)
@@ -87,26 +92,30 @@ def test_two_level_matches_jax_v2(blocks):
 def test_wrappers_refuse_launches_their_kernels_were_not_built_for():
     """On any device: the gates are the kernels' limits, not the device's."""
     q = t(randn(rng(3), 1, 300, 2, 64))
+    long = t(randn(rng(3), 1, 4100, 2, 64))
     with pytest.raises(ValueError):
-        fa.flash_attention_single_pass(q, q, q)  # Sk 300 > 256
+        fa.flash_attention_single_pass(q, long, long)  # Sk 4,100 > 4,096
     with pytest.raises(ValueError):
         fa.flash_attention_single_pass(q[:, :64], q[:, :64], q[:, :64], block_q=48)
     with pytest.raises(ValueError):
-        fa.flash_attention_single_pass_batched(q[:, :64], q[:, :64], q[:, :64], 32, 3)
+        fa.flash_attention_single_pass_batched(q[:, :64], q[:, :64], q[:, :64], 64, 3)
     with pytest.raises(ValueError):
         fa.flash_attention_two_level(q, q, q, 64, 512, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention_d64(q, q, q, 64, 256, 128)
     before = {name: (f.launches, dict(f.shapes)) for name, f in fa.KERNELS.items()}
     fa.flash_attention_two_level(q, q, q)
-    fa.flash_attention_single_pass_batched(q[:, :200], q[:, :200], q[:, :200], 16, 2)
+    fa.flash_attention_d64(q, q, q)
+    fa.flash_attention_single_pass_batched(q[:, :200], q[:, :200], q[:, :200], 64, 2)
     assert before == {name: (f.launches, dict(f.shapes)) for name, f in fa.KERNELS.items()}
 
 
 @pytest.mark.parametrize("sk,bq,d,bb,ok", [
-    (256, 64, 64, 1, True), (257, 64, 64, 1, False), (1, 16, 64, 1, True),
-    (256, 128, 64, 2, False),  # 16 warps
-    (256, 64, 64, 2, True), (256, 32, 64, 3, True), (256, 16, 64, 4, False),  # 270 KB
-    (128, 16, 64, 6, True), (128, 16, 64, 8, False), (256, 64, 512, 1, False),
-    (256, 48, 64, 1, False)])
+    (4096, 64, 64, 1, True), (4097, 64, 64, 1, False), (1, 64, 64, 1, True),
+    (0, 128, 64, 1, False), (1024, 128, 64, 8, True), (513, 128, 64, 5, True),
+    (256, 32, 64, 1, False), (256, 16, 64, 4, False),  # the mma.sync block_q are gone
+    (256, 192, 64, 1, False), (256, 64, 512, 1, False), (256, 128, 64, 0, False),
+    (4096, 128, 64, 8, True), (100000, 128, 64, 1, False)])
 def test_single_pass_gate(sk, bq, d, bb, ok):
     assert fa.single_pass_ok(sk, bq, d, bb) is ok
 
@@ -135,13 +144,13 @@ def test_table_lookup_matches_jax(monkeypatch, d):
 # a table in the port's vocabulary at the port's block sizes
 ROUTE_TABLE = [
     {"name": "flash", "b": 2, "s": 65536, "h": 10, "d": 64, "impl": "flash_d64",
-     "block_q": 64, "block_k": 64},
+     "block_q": 128, "block_k_major": 256, "block_k": 128},
     {"name": "two", "b": 2, "s": 16384, "h": 20, "d": 64, "impl": "two_level", "block_q": 128,
      "block_k_major": 256, "block_k": 128},
     {"name": "sp", "b": 32, "s": 256, "h": 20, "d": 64, "impl": "single_pass", "block_q": 64,
      "block_k": 256},
     {"name": "spb", "b": 32, "s": 128, "h": 5, "d": 64, "impl": "single_pass_batched",
-     "block_q": 32, "block_k": 128, "block_b": 2},
+     "block_q": 64, "block_k": 128, "block_b": 2},
     {"name": "vae", "b": 2, "s": 16384, "h": 1, "d": 512, "impl": "flash_d512", "block_q": 64,
      "block_k": 64},
 ]
@@ -175,7 +184,7 @@ def both_routes(monkeypatch):
         if kind == "v1":
             return attn.DEFAULT_KERNEL[q_shape[-1]], {}
         if kind in ("v3", "v4"):
-            return "flash_d64", {}  # the port's d=64 kernel has fixed tiles
+            return "flash_d64", None  # the TPU's blocks; the port's come from the entry
         if kind == "v2":
             return "two_level", None  # the JAX route always takes v2's TPU default blocks
         if kind == "v5":
@@ -213,8 +222,8 @@ def test_route_matches_the_jax_dispatcher(both_routes):
 # Where the H100 gates and the JAX package's gates differ: (q shape, k length,
 # the JAX route, the port's route)
 ROUTE_DIFFERS = [
-    # v5_vmem_ok admits 512 keys; the single pass on this card holds 256 at most
-    ((32, 512, 20, 64), 512, ("single_pass", {"block_q": 64}), ("flash_d64", {})),
+    # v5_vmem_ok admits 5,120 keys; the port's single pass stops at 4,096
+    ((32, 256, 20, 64), 5120, ("single_pass", {"block_q": 64}), ("flash_d64", {})),
     # v2 needs S % 2048 == 0 and falls back to v1; the port's B10 masks ragged tiles
     ((2, 15360, 20, 64), 15360, ("flash_d64", {}),
      ("two_level", {"block_q": 128, "block_k_major": 256, "block_k": 128})),
@@ -223,7 +232,7 @@ ROUTE_DIFFERS = [
     ((32, 200, 20, 64), 200, ("xla", {}), ("single_pass", {"block_q": 64})),
     # v6 takes block_q = min(block_q, S); the port keeps block_q and masks
     ((32, 16, 20, 64), 16, ("single_pass_batched", {"block_q": 16, "block_b": 2}),
-     ("single_pass_batched", {"block_q": 32, "block_b": 2})),
+     ("single_pass_batched", {"block_q": 64, "block_b": 2})),
 ]
 
 
@@ -240,7 +249,9 @@ def test_route_defaults_and_cpu_dispatch(monkeypatch):
     head dim. On the CPU every route takes the plain version."""
     monkeypatch.setattr(attn, "_TABLE", [e for e in ROUTE_TABLE if e["d"] == 64])
     assert attn.route((2, 100, 1, 512), (2, 100, 1, 512)) == ("flash_d512", {})
-    assert attn.route((32, 256, 20, 64), (32, 300, 20, 64)) == ("flash_d64", {})
+    assert attn.route((32, 256, 20, 64), (32, 5000, 20, 64)) == ("flash_d64", {})
+    assert attn.route((2, 65536, 10, 64), (2, 65536, 10, 64)) == (
+        "flash_d64", {"block_q": 128, "block_k_major": 256, "block_k": 128})
     assert attn.route((31, 128, 5, 64), (31, 128, 5, 64)) == ("flash_d64", {})  # 155 % 2
     with pytest.raises(ValueError):
         attn.route((1, 8, 1, 128), (1, 8, 1, 128))
@@ -375,7 +386,7 @@ def test_write_table_merges_like_the_jax_tuner(tmp_path, old_table):
 def test_tuner_shapes_and_candidates():
     """The JAX package's hot shapes plus the per-frame 16^2 mid block; every
     candidate is a port kernel at block sizes its gate admits, with no plain
-    or library candidate; the single pass qualifies only at S = 256."""
+    or library candidate; the single pass qualifies at S <= 4,096."""
     from diffuman4d_torch import tune_attention as ta
 
     extra = ("2d@16sq_mid", 32, 256, 20, 64)
@@ -383,7 +394,7 @@ def test_tuner_shapes_and_candidates():
     single = set()
     for name, b, s, h, d in ta.HOT_SHAPES:
         cands = ta.candidates(b, s, h, d)
-        assert f"flash_d{d}" in cands
+        assert f"flash_d{d}" in {impl for impl, _ in cands.values()}
         for cname, (impl, params) in cands.items():
             assert impl in fa.KERNELS and set(params) == set(fa.BLOCK_PARAMS[impl])
             if impl.startswith("single_pass"):
@@ -392,7 +403,9 @@ def test_tuner_shapes_and_candidates():
                 assert params.get("block_b", 1) < b * h
             if impl == "two_level":
                 assert fa.two_level_ok(d, *params.values())
-    assert single == {"2d@16sq_mid"}
+            if impl == "flash_d64":
+                assert fa.skew_ok(d, *params.values())
+    assert single == {"2d@16sq_mid", "2d@32sq", "2d@64sq", "3d@16sq_mid"}
 
 
 def test_tuner_exits_2_without_a_card():

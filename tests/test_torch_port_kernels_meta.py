@@ -129,23 +129,35 @@ def _chip_smoke():
 
 
 def test_chip_smoke_kernel_records():
-    """Every kernel's source exists and names the TPU kernel it replaces;
-    B5 and B10 come from the Hopper file; B10's launches are read from
-    demo_4d (budgeted, then resumed by the CLI), the main path, then the
-    CLI's production demo_3d and the slice, before the tuner, and last the
-    checkpoint variants (read where a partial run drove only those); B3 and
-    B4 launch on the same sampling paths."""
-    meta = _chip_smoke().KERNEL_META
+    """Every kernel's source exists and names the TPU kernel it replaces at
+    the line of its ``def``; B5 and B10 come from the Hopper file, B1/B2
+    from the skewed-pipeline file, B8/B9 from the single-pass file. The
+    attention kernels that the table may route sampling shapes to read
+    their launches from demo_4d (budgeted, then resumed by the CLI), the
+    main path, then the CLI's production demo_3d, the slice and the
+    checkpoint variants, and last the tuner; B3 and B4 launch on the same
+    sampling paths."""
+    mod = _chip_smoke()
+    meta = mod.KERNEL_META
     assert len(meta) == 9  # ten TPU kernels; B6 and B7 are one fused kernel
     for name, (source, replaces, *_rest, phases) in meta.items():
         assert (ROOT / source).is_file(), name
         path, line = replaces.split(" ")[0].split(":")
-        assert (ROOT / path).is_file() and int(line) > 0, name
+        kernel = replaces.split("(")[1].split(")")[0]
+        lines = (ROOT / path).read_text().splitlines()
+        assert lines[int(line) - 1].startswith(f"def {kernel}("), name
     for name in ("flash_fwd_lse", "flash_fwd_two_level"):
         assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_hopper.cu"
-    assert meta["flash_fwd_two_level"][-1] == ("demo4d", "cli", "slice", "tune", "variants")
+    for name in ("flash_fwd_d64_window", "flash_fwd_d64_frame"):
+        assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_skew_hopper.cu"
+    for name in ("flash_fwd_single_pass", "flash_fwd_single_pass_batched"):
+        assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_single_hopper.cu"
+    assert mod.PATHS == ("demo4d", "cli", "slice", "variants")
+    for name in ("flash_fwd_two_level", "flash_fwd_d64_window", "flash_fwd_d64_frame",
+                 "flash_fwd_single_pass", "flash_fwd_single_pass_batched"):
+        assert meta[name][-1] == (*mod.PATHS, "tune"), name
     for name in ("flash_fwd_d512", "conv3x3"):
-        assert meta[name][-1] == ("demo4d", "cli", "slice", "variants")
+        assert meta[name][-1] == mod.PATHS
 
 
 def test_chip_smoke_fused_backward_record_names_both_tpu_kernels():
@@ -180,13 +192,35 @@ def test_fused_backward_block_sizes_match_the_wrapper():
 
 def test_vae_kernels_come_from_their_hopper_sources():
     """B3 and B4 launch the entries of their Hopper sources, which
-    ``chip_smoke.py``'s records name; ``flash_attn.cu`` keeps only the
-    d = 64 kernel (B1/B2)."""
+    ``chip_smoke.py``'s records name; the FA2-era ``mma.sync`` sources are
+    retired (``flash_attn.cu``, ``flash_attn_single.cu``, ``conv3x3.cu``)."""
     meta = _chip_smoke().KERNEL_META
     assert meta["flash_fwd_d512"][0] == "diffuman4d_torch/csrc/flash_attn_d512.cu"
     assert meta["conv3x3"][0] == "diffuman4d_torch/csrc/conv3x3_hopper.cu"
     assert _launched(fa.flash_attention_d512) == ("flash_attn_d512", "flash_attn_fwd_d512")
     assert _launched(conv.conv3x3) == ("conv3x3_hopper", "conv3x3_fwd")
-    src = (CSRC / "flash_attn.cu").read_text()
-    assert "launch<512" not in src and "launch<64, 64, 2>" in src
-    assert not (CSRC / "conv3x3.cu").exists()
+    for name in ("flash_attn.cu", "flash_attn_single.cu", "conv3x3.cu"):
+        assert not (CSRC / name).exists(), name
+
+
+def test_skew_and_single_pass_build_what_the_wrappers_admit():
+    """The switch of ``flash_attn_fwd_skew`` builds exactly SKEW_CONFIGS (its
+    default among them); ``flash_attn_single_pass`` builds the two
+    SINGLE_PASS_BLOCK_Q and refuses Sk above SINGLE_PASS_MAX_SK, the limit
+    of ``single_pass_ok``; both new kernels use TMA and wgmma, no mma.sync."""
+    src = (CSRC / "flash_attn_skew_hopper.cu").read_text()
+    body = src[src.index('extern "C" int flash_attn_fwd_skew'):]
+    body = body[: body.index("default:")]
+    built = {(c // 1000000, c // 1000 % 1000, c % 1000)
+             for c in map(int, re.findall(r"case (\d+):", body))}
+    assert built == set(fa.SKEW_CONFIGS) and fa.SKEW_DEFAULT in built
+    assert _launched(fa.flash_attention_d64) == ("flash_attn_skew_hopper", "flash_attn_fwd_skew")
+    sp = (CSRC / "flash_attn_single_hopper.cu").read_text()
+    body = sp[sp.index('extern "C" int flash_attn_single_pass'):]
+    assert {int(c) for c in re.findall(r"case (\d+):", body)} == set(fa.SINGLE_PASS_BLOCK_Q)
+    m = re.search(r"constexpr int MAX_SK = (\d+);", sp)
+    assert m and int(m.group(1)) == fa.SINGLE_PASS_MAX_SK and "Sk > MAX_SK" in body
+    for name in ("single_pass", "single_pass_batched"):
+        assert _launched(fa.KERNELS[name]) == ("flash_attn_single_hopper", "flash_attn_single_pass")
+    for text in (src, sp):
+        assert "tma_load_4d" in text and "wgmma_m64n" in text and "mma_bf16" not in text
