@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,tune,kernels    # the attention sweep only
     python3 chip_smoke.py --phases build,demo4d          # demo_4d, budgeted and resumed
     python3 chip_smoke.py --phases build,variants,kernels  # DPM++ / Euler / FreeU / skeletons
+    python3 chip_smoke.py --phases build,bench,train,train_run  # the measurement entry points
 
 Phases:
 
@@ -21,6 +22,14 @@ Phases:
    of the four must have launched, and no candidate may have failed. Its winners are printed
    beside the committed table's (a different winner is reported, not
    failed: another card's clocks are no fault of the program).
+1c. ``bench``: ``python -m diffuman4d_torch.bench`` in a child process, as
+   a user runs it (its scene under ``build/smoke/bench``): it must exit 0
+   and print the smoke tier's ``smoke_window_step_sec`` line and the full
+   tier's ``cam_frames_per_sec_per_chip`` line (a 48-camera demo_3d task
+   at 1024^2, warm and cold), every value positive, and the full tier's
+   ``launches`` must show B1, B2, B8, B9, B3 and B4 each launched. Its
+   times are logged beside the card's name and power limit, and the shapes
+   its wrappers launched (its ``shapes.json``) go to the kernels phase.
 2. ``reference``: the full-width UNet on one small CFG window and the VAE
    decoder on one small latent, each run once through the kernels and once
    with every kernel swapped for its plain version; the outputs must agree.
@@ -42,8 +51,9 @@ Phases:
 3b. ``cli``: production demo_3d through the port's own CLI
    (``diffuman4d_torch.cli.main``, in this process): the random bf16 models
    are written as a diffusers directory (``io/checkpoints.py``
-   ``save_hf_checkpoint``) under ``build/smoke/model``, a synthetic
-   48-camera, one-frame scene at 1024^2 is made, and ``exp=demo_3d``
+   ``save_hf_checkpoint``) under ``build/smoke/model``, on the bench
+   phase's synthetic 48-camera, one-frame scene at 1024^2 (made here when
+   that phase did not run) ``exp=demo_3d``
    (inputs [1, 13, 25, 37], window 12, stride 1, one round, DDIM, CFG 2.0,
    bf16) runs from that directory with ``evaluating=true``: sampling,
    nerfstudio export, metrics. Launch counters and shape records are zeroed
@@ -113,14 +123,18 @@ Phases:
    forward-with-logsumexp kernel, the fused backward and the fused conv
    must have launched the reckoned number of times; the loss must be
    finite, fall from step 1 to step 3 and repeat bit for bit at every step.
+   Then ``diffuman4d_torch.train_step_chip`` (the entry point, in this
+   process) runs the same shape with Adafactor, 3 timed steps: its record
+   must hold a finite loss and a step time, not an out-of-memory record;
+   its peak memory is logged beside AdamW's.
 5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
    the card's bound for the work, at a fixed list of the paths' shapes (the
    d = 64 kernel at the table's blocks; the single pass at S 256, 512 and
    1,024, a ragged S and its largest Sk, 4,096) plus every (shape, epilogue
-   variant or block sizes) the tune, slice, cli, demo4d, train and variants
-   phases launched.
+   variant or block sizes) the tune, bench, slice, cli, demo4d, train and
+   variants phases launched.
    Where the plain attention cannot hold the S x S scores it is compared on
    a random subset of query rows against the full K/V and timed
    query-chunked; dK/dV are then compared with Q and dO cut to that subset
@@ -144,6 +158,12 @@ resume's load.
 ``--phases build,overlap`` (not in the default set) times 4 tasks of
 demo_4d's last round (16 x 12, every target decoded) through the saver
 thread and through the serial path, in turns after one untimed run.
+``--phases build,train_run`` (not in the default set) runs ``python -m
+diffuman4d_torch.train_run_chip`` (full width, window 6 at 512^2,
+Adafactor, host EMA) in a child process for 12 steps with a checkpoint
+every 6, then in a second one that must resume at step 12 and run to 18,
+then ``--report``: the logged steps and the state checkpoints must
+continue across the two sessions and every loss must be finite.
 
 Exit code 0 only when every phase passed. The last stdout line is the JSON
 device record; the line before it lists the kernels. Without a CUDA device
@@ -164,9 +184,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "tune", "reference", "slice", "cli", "demo4d", "train", "variants",
+PHASES = ("build", "tune", "bench", "reference", "slice", "cli", "demo4d", "train", "variants",
           "kernels")
-EXTRA_PHASES = ("profile", "demo4d_prod", "overlap")  # run only when asked for
+EXTRA_PHASES = ("profile", "demo4d_prod", "overlap", "train_run")  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
 # 128^2 latents (3D window attention and per-frame attention at each level)
@@ -265,6 +285,16 @@ TRAIN_ATTN_SHAPES = [
 ]
 TRAIN_L = 12  # frames of the train window: 4 condition rows + 8 targets
 TRAIN_STEPS = 3
+# the bench's kernels by the TPU kernel each replaces: each must launch in
+# its full tier (B10: the table routes no path shape to it)
+BENCH_KERNELS = ("B1", "B2", "B8", "B9", "B3", "B4")
+BENCH_TIMEOUT_S = 900
+# the bench's scene (python -m diffuman4d_torch.bench makes 48 cameras at
+# 1024^2 under BENCH_SCENE_DIR, label "scene"), which the cli phase reuses
+BENCH_SCENE = "scene"
+# train_run: a session of 12 steps with a checkpoint every 6, then a
+# resumed session to 18 (window 6 at 512^2, Adafactor, host EMA)
+TRAIN_RUN_STEPS, TRAIN_RUN_RESUMED, TRAIN_RUN_EVERY = 12, 18, 6
 # attention calls of one UNet forward: 3 levels x (2 down + 3 up) + 1 mid
 # transformer blocks, each with one 3D / per-frame pair
 ATTN_CALLS_PER_FORWARD = 32
@@ -644,7 +674,7 @@ def _ordered(fixed: list, launched) -> list:
 def phase_kernels(launched: dict) -> dict:
     """Every kernel against its plain version at the fixed shapes and at
     each shape in ``launched`` (the wrappers' ``shapes`` records of the
-    slice and cli paths)."""
+    paths that ran, the bench's child process included)."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False  # the plain conv runs in full fp32
@@ -1067,6 +1097,120 @@ def phase_train(unet, vae, work: Path) -> dict:
     if not all(res["repeat_bits"]):
         raise AssertionError(f"train: the losses do not repeat bit for bit: {first['losses']} "
                              f"vs {runs[1]['losses']}")
+
+    # the Adafactor step through the port's train_step_chip entry point
+    from diffuman4d_torch import train_step_chip
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ada = train_step_chip.main(["--optimizer", "adafactor", "--steps", str(TRAIN_STEPS),
+                                "--out", str(work / "train_step_torch.json")])
+    res["adafactor"] = {**ada, "wall_s": time.perf_counter() - t0}
+    log(f"train: adafactor {ada.get('value')} s a step ({ada.get('all_steps_s')}), peak "
+        f"{ada.get('hbm_peak_gb')} GiB (AdamW above: "
+        f"{max(r['peak_gb'] for r in runs) / 1.073741824:.2f} GiB), "
+        f"{ada.get('tflop_per_step')} TFLOP a step, MFU {ada.get('mfu_vs_989tf_bf16')}")
+    if ada.get("oom") or not ada.get("value") or not math.isfinite(ada.get("loss", math.nan)):
+        raise AssertionError(f"train: the Adafactor step failed: {ada}")
+    return res
+
+
+def _module_run(args: list, env: dict | None = None, timeout: float = 900) -> tuple:
+    """``python -m`` in a child process from the checkout's root: (return
+    code, stdout, stderr)."""
+    e = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+         **(env or {})}
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=e, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def phase_bench(work: Path, smi: str) -> dict:
+    """``python -m diffuman4d_torch.bench`` as a user runs it: both tiers'
+    lines, every value positive, every kernel of the full tier launched."""
+    t0 = time.perf_counter()
+    rc, out, err = _module_run(["diffuman4d_torch.bench"], timeout=BENCH_TIMEOUT_S + 60,
+                               env={"BENCH_SCENE_DIR": str(work / "bench"),
+                                    "BENCH_TIMEOUT_S": str(BENCH_TIMEOUT_S)})
+    wall_s = time.perf_counter() - t0
+    (work / "bench_stderr.log").write_text(err)
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    for x in err.splitlines():
+        if x.startswith("[bench]"):
+            log(f"  {x}")
+    res = {"rc": rc, "wall_s": wall_s, "card": smi, "lines": lines}
+    log(f"bench ({smi}): rc {rc}, {wall_s:.1f} s, {json.dumps(lines)}")
+    if rc != 0:
+        raise AssertionError(f"bench: exit code {rc}: {err[-2000:]}")
+    if [x["metric"] for x in lines] != ["smoke_window_step_sec", "cam_frames_per_sec_per_chip"]:
+        raise AssertionError(f"bench: lines {lines}")
+    full = lines[1]
+    for x in lines:
+        if not (isinstance(x["value"], float) and x["value"] > 0 and x["vs_baseline"] > 0):
+            raise AssertionError(f"bench: {x['metric']} = {x['value']}")
+    if not (full["warm"] > 0 and full["cold"] == full["value"]):
+        raise AssertionError(f"bench: warm {full['warm']}, cold {full['cold']}")
+    missing = [k for k in BENCH_KERNELS if not full["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"bench: {missing} never launched in the full tier: "
+                             f"{full['launches']}")
+    # the shapes each wrapper launched in either tier (the child's records),
+    # by the names of the kernels phase, which holds each against its plain
+    # version
+    tiers = json.loads((work / "bench" / "shapes.json").read_text())
+    res["shapes"] = {ATTN_NAMES.get(name, name): sorted({tuple(key[:-1]) for t in tiers.values()
+                                                         for key in t[name]})
+                     for name in tiers["full"]}
+    log(f"  bench: launched shapes {json.dumps(res['shapes'])}")
+    return res
+
+
+def phase_train_run(work: Path, smi: str) -> dict:
+    """``python -m diffuman4d_torch.train_run_chip``: a session, a second
+    process that resumes from its newest state and runs on, then
+    ``--report``."""
+    out, scene = work / "train_run", work / "train_scene"
+    common = ["diffuman4d_torch.train_run_chip", "--out", str(out), "--scene", str(scene),
+              "--checkpoint-every", str(TRAIN_RUN_EVERY)]
+    sessions = []
+    for steps in (TRAIN_RUN_STEPS, TRAIN_RUN_RESUMED):
+        t0 = time.perf_counter()
+        rc, stdout, err = _module_run(common + ["--steps", str(steps)])
+        (work / f"train_run_{steps}.log").write_text(stdout + err)
+        rep = next((json.loads(x.split(" ", 1)[1]) for x in stdout.splitlines()
+                    if x.startswith("[train_run] {")), None)
+        resumed = [x for x in err.splitlines() if "resumed train state" in x]
+        sessions.append({"rc": rc, "wall_s": time.perf_counter() - t0, "report": rep,
+                         "resumed": resumed})
+        log(f"train_run ({smi}): --steps {steps}: rc {rc}, "
+            f"{sessions[-1]['wall_s']:.1f} s, {json.dumps(rep)}")
+        if rc != 0 or rep is None:
+            raise AssertionError(f"train_run: --steps {steps} exited {rc}: {err[-2000:]}")
+    rc, stdout, err = _module_run(["diffuman4d_torch.train_run_chip", "--report", "--out",
+                                   str(out)])
+    report = json.loads(stdout.strip().splitlines()[-1])
+    ckpt_gb = sum(f.stat().st_size for f in out.iterdir()) / 1e9
+    shutil.rmtree(out)  # fp32 states with the EMA shadow: ~7 GB each
+    res = {"sessions": sessions, "report": report, "ckpt_gb": ckpt_gb, "card": smi}
+    log(f"train_run: report {json.dumps(report)}, {ckpt_gb:.1f} GB of checkpoints")
+    first, second = (x["report"] for x in sessions)
+    states = [f"state_{n:07d}.pt" for n in range(TRAIN_RUN_EVERY, TRAIN_RUN_RESUMED + 1,
+                                                   TRAIN_RUN_EVERY)]
+    if sessions[0]["resumed"] or not sessions[1]["resumed"] or \
+            f"at step {TRAIN_RUN_STEPS} " not in sessions[1]["resumed"][0]:
+        raise AssertionError(f"train_run: resume lines {[x['resumed'] for x in sessions]}")
+    if first["state_checkpoints"] != states[:2] or second["state_checkpoints"] != states:
+        raise AssertionError(f"train_run: checkpoints {first['state_checkpoints']} then "
+                             f"{second['state_checkpoints']}")
+    # log_every 3: steps 1, 4, 7, 10 in the first session, then 13 and 16
+    if (first["last_step"], second["first_step"], second["last_step"]) != (10, 1, 16):
+        raise AssertionError(f"train_run: logged steps {first} then {second}")
+    if rc != 0 or {k: v for k, v in second.items() if k in report} != report:
+        raise AssertionError(f"train_run: --report exited {rc}: {report}")
+    losses = report["loss_series_every10"] + [report["loss_first5th_mean"],
+                                              report["loss_last5th_mean"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_run: non-finite loss {report}")
     return res
 
 
@@ -1198,14 +1342,16 @@ def phase_cli(unet, vae, work: Path) -> dict:
     from diffuman4d_torch.ops import conv, flash_attention as fa
     from diffuman4d_torch.sampling import loader, pipeline as pp
 
-    model_dir, data_dir, out = work / "model", work / "data48", work / "cli_out"
+    # the bench phase's 48-camera scene (made here when that phase did not run)
+    model_dir, data_dir, out = work / "model", work / "bench", work / "cli_out"
     t0 = time.perf_counter()
     save_hf_checkpoint(str(model_dir), unet, vae)
     write_s = time.perf_counter() - t0
     ckpt_gb = sum(f.stat().st_size for f in model_dir.rglob("*") if f.is_file()) / 1e9
     t0 = time.perf_counter()
-    make_synthetic_scene(str(data_dir), "scene0", num_cams=CLI_CAMERAS, num_frames=1,
-                         image_size=1024)
+    if not (data_dir / BENCH_SCENE / "transforms.json").is_file():
+        make_synthetic_scene(str(data_dir), BENCH_SCENE, num_cams=CLI_CAMERAS, num_frames=1,
+                             image_size=1024)
     scene_s = time.perf_counter() - t0
 
     loaded, windows = {}, []
@@ -1223,7 +1369,7 @@ def phase_cli(unet, vae, work: Path) -> dict:
         return run
 
     wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
-    argv = ["exp=demo_3d", f"data.data_dir={data_dir}", "data.scene_label=scene0",
+    argv = ["exp=demo_3d", f"data.data_dir={data_dir}", f"data.scene_label={BENCH_SCENE}",
             f"model.model_dir={model_dir}", f"sampler.output_dir={out}", "evaluating=true"]
     with _patched(loader, "load_pipeline", recording_load), \
             _patched(pp.Diffuman4DPipeline, "sliding_denoise", counting_denoise):
@@ -2179,6 +2325,7 @@ def main() -> int:
 
     def run(name, fn, *a):
         log(f"== {name}")
+        t0 = time.perf_counter()
         try:
             results[name] = fn(*a)
         except Exception as e:  # noqa: BLE001 -- every phase is reported, then the run fails
@@ -2187,6 +2334,7 @@ def main() -> int:
             traceback.print_exc()
             results["failed"].append(name)
             log(f"FAILED {name}: {type(e).__name__}: {e}")
+        log(f"== {name}: {time.perf_counter() - t0:.1f} s")
 
     if "build" in phases or "kernels" in phases:
         run("build", phase_build)
@@ -2195,6 +2343,8 @@ def main() -> int:
     if "tune" in phases:
         run("tune", phase_tune, work)
         torch.cuda.empty_cache()
+    if "bench" in phases:
+        run("bench", phase_bench, work, smi)
     if "reference" in phases:
         run("reference_train", phase_reference_train)
         torch.cuda.empty_cache()
@@ -2227,9 +2377,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "overlap" in phases:
         run("overlap", phase_overlap, work)
+    if "train_run" in phases:
+        run("train_run", phase_train_run, work, smi)
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
-        for phase in ("tune", "slice", "cli", "demo4d", "train", "variants"):
+        for phase in ("tune", "bench", "slice", "cli", "demo4d", "train", "variants"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

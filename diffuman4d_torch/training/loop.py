@@ -6,7 +6,8 @@ the train step of :mod:`trainer`, checkpoints every ``checkpoint_every``
 steps and a JSONL metrics log. A checkpoint is two ``torch.save`` files:
 ``ckpt_<step>.pt`` holds the inference weights (the EMA when enabled) as a
 state dict in the diffusers key names, ``state_<step>.pt`` the full train
-state (fp32 master parameters, optimiser moments and count, step, EMA). A
+state (fp32 master parameters, the optimiser's state -- AdamW's moments or
+Adafactor's factored second moment -- and count, step, EMA). A
 run started in a directory that has ``state_*`` files resumes from the
 newest. Each step seeds its data draw and its noise from ``(seed, step)``,
 so a resumed run repeats an uninterrupted one exactly.
@@ -175,10 +176,21 @@ def _restore_state(path: str, state: TrainState, host_ema: HostEMA | None, devic
         raise KeyError(f"{path}: parameter names do not match the model")
     for k, p in state.params.items():
         p.copy_(tree["params"][k])
-    for moment in ("mu", "nu"):
-        for k, m in state.opt_state[moment].items():
-            m.copy_(tree["opt_state"][moment][k])
-    state.opt_state["count"] = int(tree["opt_state"]["count"])
+    saved = tree["opt_state"]
+    if set(saved) != set(state.opt_state):
+        raise KeyError(f"{path}: optimiser state {sorted(saved)}, this run's optimiser keeps "
+                       f"{sorted(state.opt_state)}")
+    for slot, tensors in state.opt_state.items():
+        if slot == "count":
+            continue
+        if set(saved[slot]) != set(tensors):
+            raise KeyError(f"{path}: optimiser state {slot!r} holds other parameters")
+        for k, m in tensors.items():
+            if saved[slot][k].shape != m.shape:
+                raise ValueError(f"{path}: {slot}[{k!r}] is {tuple(saved[slot][k].shape)}, "
+                                 f"expected {tuple(m.shape)}")
+            m.copy_(saved[slot][k])
+    state.opt_state["count"] = int(saved["count"])
     state.step = int(tree["step"])
     ema = tree.get("ema_params")
     if ema is None and (host_ema is not None or state.ema_params is not None):

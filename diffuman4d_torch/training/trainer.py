@@ -13,10 +13,11 @@ state owns fp32 master parameters and the optimiser moments; the UNet module
 holds a working copy in its compute dtype (bf16 in production) that is
 refreshed from the masters after every step, and the working copy's
 gradients are taken to fp32 before clipping and the update. The optimiser
-restates ``optax.chain(clip_by_global_norm, adamw)``: weight decay applies to
-every parameter, eps is 1e-8 outside the square root, the learning-rate
-schedule is read at the count before the step. The step updates the state
-and the module in place.
+restates ``optax.chain(clip_by_global_norm, adamw)`` or
+``optax.chain(clip_by_global_norm, adafactor)`` at optax 0.2.6's defaults:
+the learning-rate schedule is read at the count before the step, and
+weight decay applies to every parameter. The step updates the state and the
+module in place.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from diffuman4d_torch.models.unet import UNetMultiviewCondition
@@ -41,7 +43,7 @@ class TrainConfig:
     grad_clip: float = 1.0
     prediction_type: str = "epsilon"  # epsilon | v_prediction
     remat: bool = True  # recompute each UNet block in the backward pass
-    optimizer: str = "adamw"  # adamw (adafactor is not ported yet)
+    optimizer: str = "adamw"  # adamw | adafactor (factored second moment: O(rows + cols))
     lr_schedule: str = "constant"  # constant | cosine (linear warm-up in both)
     warmup_steps: int = 0
     total_steps: int = 100_000  # cosine horizon
@@ -61,12 +63,14 @@ class TrainConfig:
 
 
 class TrainState:
-    """fp32 master parameters, AdamW moments, step and optional device EMA,
-    all dicts keyed by the UNet's parameter names."""
+    """fp32 master parameters, optimiser state, step and optional device
+    EMA, all dicts keyed by the UNet's parameter names."""
 
     def __init__(self, params, opt_state, step=0, ema_params=None):
         self.params = params
-        self.opt_state = opt_state  # {"count": int, "mu": {...}, "nu": {...}}
+        # {"count": int, "mu": {...}, "nu": {...}} (AdamW) or
+        # {"count": int, "v_row": {...}, "v_col": {...}, "v": {...}} (Adafactor)
+        self.opt_state = opt_state
         self.step = step
         self.ema_params = ema_params
 
@@ -100,22 +104,66 @@ def make_lr_schedule(cfg: TrainConfig):
     raise ValueError(f"unknown lr_schedule: {cfg.lr_schedule}")
 
 
+# optax.adafactor's defaults (optax 0.2.6, ``alias.py`` / ``factorized.py``)
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY_EXPONENT = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP_RMS = 1.0
+ADAFACTOR_MIN_PARAM_RMS = 1e-3
+
+
+def factored_dims(shape) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: the axes ``(d1, d0)`` of the second
+    largest and the largest dim when the second largest is at least 128,
+    else None (a full second moment). In torch layouts the two axes are
+    the flax layout's, possibly in the other order; the factored estimate
+    is symmetric in them."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return x.square().mean().sqrt()
+
+
 class Optimizer:
-    """Global-norm clip, then AdamW (the chain of the JAX package's
-    ``make_optimizer``), on dicts of fp32 tensors, in place."""
+    """Global-norm clip, then AdamW or Adafactor (the chains of the JAX
+    package's ``make_optimizer``), on dicts of fp32 tensors, in place.
+
+    AdamW: eps 1e-8 outside the square root, decoupled weight decay scaled
+    by the learning rate. Adafactor (``optax.adafactor(schedule,
+    weight_decay_rate=weight_decay or None)``): a second moment factored
+    into row and column means for parameters whose two largest dims are
+    >= 128, else kept whole, decaying at ``1 - (count + 1)^-0.8``; each
+    parameter's update clipped to rms 1, scaled by the learning rate and
+    by ``max(rms(p), 1e-3)``; then ``weight_decay * p`` added (after the
+    learning rate, as optax adds it) and the sign flipped."""
 
     def __init__(self, cfg: TrainConfig):
-        if cfg.optimizer == "adafactor":
-            raise NotImplementedError("the adafactor optimiser is not ported yet (adamw is)")
-        if cfg.optimizer != "adamw":
+        if cfg.optimizer not in ("adamw", "adafactor"):
             raise ValueError(cfg.optimizer)
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
 
     def init(self, params: dict) -> dict:
-        return {"count": 0,
-                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+        if self.cfg.optimizer == "adamw":
+            return {"count": 0,
+                    "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                    "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for k, p in params.items():
+            dims = factored_dims(p.shape)
+            if dims is None:
+                state["v"][k] = torch.zeros_like(p)
+                continue
+            d1, d0 = dims
+            state["v_row"][k] = p.new_zeros(p.shape[:d0] + p.shape[d0 + 1:])
+            state["v_col"][k] = p.new_zeros(p.shape[:d1] + p.shape[d1 + 1:])
+        return state
 
     @torch.no_grad()
     def update(self, grads: dict, opt_state: dict, params: dict) -> torch.Tensor:
@@ -128,15 +176,39 @@ class Optimizer:
                            cfg.grad_clip / g_norm)
         lr = self.schedule(opt_state["count"])
         count = opt_state["count"] = opt_state["count"] + 1
-        c1, c2 = 1.0 - cfg.b1 ** count, 1.0 - cfg.b2 ** count
+        if cfg.optimizer == "adamw":
+            c1, c2 = 1.0 - cfg.b1 ** count, 1.0 - cfg.b2 ** count
+            for name, p in params.items():
+                g = grads[name] * clip
+                mu = opt_state["mu"][name].mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
+                nu = opt_state["nu"][name].mul_(cfg.b2).addcmul_(g, g, value=1.0 - cfg.b2)
+                update = (mu / c1) / ((nu / c2).sqrt_() + 1e-8)
+                if cfg.weight_decay:
+                    update.add_(p, alpha=cfg.weight_decay)
+                p.add_(update, alpha=-lr)
+            return g_norm
+        # Adafactor: the second moment decays at 1 - (t + 1)^-0.8, t the count
+        # before this step
+        decay = 1.0 - count ** -ADAFACTOR_DECAY_EXPONENT
         for name, p in params.items():
             g = grads[name] * clip
-            mu = opt_state["mu"][name].mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
-            nu = opt_state["nu"][name].mul_(cfg.b2).addcmul_(g, g, value=1.0 - cfg.b2)
-            update = (mu / c1) / ((nu / c2).sqrt_() + 1e-8)
+            g2 = g.square().add_(ADAFACTOR_EPS)
+            dims = factored_dims(p.shape)
+            if dims is None:
+                v = opt_state["v"][name].mul_(decay).add_(g2, alpha=1.0 - decay)
+                update = g.mul_(v.rsqrt())
+            else:
+                d1, d0 = dims
+                v_row = opt_state["v_row"][name].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+                v_col = opt_state["v_col"][name].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+                row = (v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt_()
+                update = g.mul_(row.unsqueeze(d0)).mul_(v_col.rsqrt().unsqueeze(d1))
+            del g2
+            update.div_(torch.clamp(_rms(update) / ADAFACTOR_CLIP_RMS, min=1.0))
+            update.mul_(lr).mul_(torch.clamp(_rms(p), min=ADAFACTOR_MIN_PARAM_RMS))
             if cfg.weight_decay:
                 update.add_(p, alpha=cfg.weight_decay)
-            p.add_(update, alpha=-lr)
+            p.sub_(update)
         return g_norm
 
 

@@ -14,9 +14,9 @@ then two steps of the port's training loop, end to end on the CPU, runs the
 port's CLI once (``exp=demo_3d`` at ``model.arch=tiny``, ``device=cpu``,
 with the nerfstudio export and the metrics), writes and reloads a
 diffusers checkpoint, imports the attention tuner and routes its hot shapes
-through the committed dispatch table, imports the forward benchmark, and
-finally checks that no module of those packages or of ``diffuman4d_tpu``
-was loaded."""
+through the committed dispatch table, imports the forward benchmark, the
+port's bench and its two training scripts, and finally checks that no
+module of those packages or of ``diffuman4d_tpu`` was loaded."""
 
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ SCRIPT = textwrap.dedent("""
                                                  layers_per_block=1),
                              device="cpu", dtype=torch.float32, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
+        tmp_dir_gone = tmp + "/none"
         make_synthetic_scene(tmp, "scene0", num_cams=6, num_frames=1, image_size=64)
         pipe = Diffuman4DPipeline(unet, vae, Scheduler(SchedulerConfig()),
                                   SlidingConfig(window_size=2, alternation_rounds=1),
@@ -188,6 +189,12 @@ SCRIPT = textwrap.dedent("""
     from diffuman4d_torch import bench_attention_fwd
 
     assert bench_attention_fwd.main(["--baseline", "."]) == 2  # no card: refuses to time
+    # the measurement entry points: the bench and the two training scripts
+    from diffuman4d_torch import bench, train_run_chip, train_step_chip
+
+    assert bench.BASELINE_CAM_FRAMES_PER_SEC == 0.55
+    assert train_step_chip.parse_args([]).optimizer == "adafactor"
+    assert train_run_chip.summarize(tmp_dir_gone) == {"error": "no metrics yet"}
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
                                            "safetensors", "diffuman4d_tpu")

@@ -201,8 +201,13 @@ def test_train_config_defaults_match_and_adafactor_is_not_ported():
     from diffuman4d_torch.training import trainer as pt
 
     assert dataclasses.asdict(pt.TrainConfig()) == dataclasses.asdict(jt.TrainConfig())
-    with pytest.raises(NotImplementedError):
-        pt.make_optimizer(pt.TrainConfig(optimizer="adafactor"))
+    # Adafactor is ported (tests/test_torch_port_adafactor.py holds it to optax)
+    opt = pt.make_optimizer(pt.TrainConfig(optimizer="adafactor"))
+    state = opt.init({"w": torch.zeros(256, 128), "b": torch.zeros(256)})
+    assert sorted(state) == ["count", "v", "v_col", "v_row"]
+    assert sorted(state["v_row"]) == sorted(state["v_col"]) == ["w"] and sorted(state["v"]) == ["b"]
+    with pytest.raises(ValueError):
+        pt.make_optimizer(pt.TrainConfig(optimizer="sgd"))
     with pytest.raises(ValueError):
         pt.make_lr_schedule(pt.TrainConfig(lr_schedule="linear"))
 
