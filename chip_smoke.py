@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,demo4d          # demo_4d, budgeted and resumed
     python3 chip_smoke.py --phases build,variants,kernels  # DPM++ / Euler / FreeU / skeletons
     python3 chip_smoke.py --phases build,bench,train,train_run  # the measurement entry points
+    python3 chip_smoke.py --phases build,waves,kernels   # waves and CP over NCCL, CP shapes
 
 Phases:
 
@@ -52,16 +53,17 @@ Phases:
    (``diffuman4d_torch.cli.main``, in this process): the random bf16 models
    are written as a diffusers directory (``io/checkpoints.py``
    ``save_hf_checkpoint``) under ``build/smoke/model``, on the bench
-   phase's synthetic 48-camera, one-frame scene at 1024^2 (made here when
-   that phase did not run) ``exp=demo_3d``
-   (inputs [1, 13, 25, 37], window 12, stride 1, one round, DDIM, CFG 2.0,
-   bf16) runs from that directory with ``evaluating=true``: sampling,
+   phase's synthetic 48-camera, one-frame scene at 1024^2 (a 16-camera one
+   made here when that phase did not run) ``exp=demo_3d``
+   (window 12, stride 1, one round, DDIM, CFG 2.0, bf16) cut to cameras
+   0-15 with inputs [1, 5, 9, 13] (the bench carries the 48-camera task)
+   runs from that directory with ``evaluating=true``: sampling,
    nerfstudio export, metrics. Launch counters and shape records are zeroed
-   just before the call and read just after. It must return 0 and write 48
-   JPEGs, ``transforms.json`` with 48 frames, ``transforms_input.json``
-   with 4 and ``metrics.json`` with 44 values and a finite mean PSNR; the
+   just before the call and read just after. It must return 0 and write 16
+   JPEGs, ``transforms.json`` with 16 frames, ``transforms_input.json``
+   with 4 and ``metrics.json`` with 12 values and a finite mean PSNR; the
    loaded weights must equal the saved ones bit for bit; the task must run
-   44 windows; B3 and B4 must have launched, every attention launch on
+   12 windows; B3 and B4 must have launched, every attention launch on
    the kernel the table routes its shape to.
 3c. ``demo4d``: the ``exp=demo_4d`` preset's schedule (window 12, stride
    2, three rounds spatial / temporal / spatial, DDIM, CFG 2.0 split on the
@@ -127,6 +129,24 @@ Phases:
    process) runs the same shape with Adafactor, 3 timed steps: its record
    must hold a finite loss and a step time, not an out-of-memory record;
    its peak memory is logged beside AdamW's.
+4b. ``waves``: the multi-device sampling paths on one card, in a child
+   process started as ``torchrun`` starts rank 0 of 1 (``RANK=0
+   WORLD_SIZE=1 MASTER_ADDR=127.0.0.1``), so that
+   ``parallel/distributed.initialize`` brings up NCCL. demo_4d's preset
+   (window 12, stride 2, DDIM, CFG 2.0, random bf16 weights from seed 0)
+   on the demo4d scene cut to 2 frames and one spatial round (two tasks of
+   16 rows, 6 windows each) runs through the serial ``execute_tasks`` and
+   through ``execute_tasks_parallel(make_mesh())`` (waves of one, each
+   wave's rows all-gathered over the NCCL group): the grids, timestep
+   indices, grid-state files and JPEGs must be equal, byte for byte, and
+   each wave must make its two collectives. Counters are zeroed just
+   before the wave run and read just after: B1/B2, B3 and B4 must launch.
+   Then one full-width no-CFG window step (16 frames at 128^2 latents)
+   through ``parallel/cp_unet.make_cp_unet_apply`` on the 1-rank model
+   group must equal the plain forward (bit for bit, or within the
+   reference phase's bound), with as many K/V all-gathers as
+   ``cp_comm_budget`` counts (22) plus the output's. It prints the wave
+   phases, the NCCL version and the card's name and power limit.
 5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
@@ -134,7 +154,11 @@ Phases:
    d = 64 kernel at the table's blocks; the single pass at S 256, 512 and
    1,024, a ragged S and its largest Sk, 4,096) plus every (shape, epilogue
    variant or block sizes) the tune, bench, slice, cli, demo4d, train and
-   variants phases launched.
+   variants phases launched, and context parallelism's attention shapes
+   (``CP_ATTN64_SHAPES``: Sq = Sk * groups / n queries against the gathered
+   Sk keys, the bench's windows at model 4 and 8) on the kernel ``route``
+   gives each, each beside its Sq = Sk time; the temporal mid block (Sk
+   6,144) must route to the d = 64 skewed kernel.
    Where the plain attention cannot hold the S x S scores it is compared on
    a random subset of query rows against the full K/V and timed
    query-chunked; dK/dV are then compared with Q and dO cut to that subset
@@ -185,7 +209,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "tune", "bench", "reference", "slice", "cli", "demo4d", "train", "variants",
-          "kernels")
+          "waves", "kernels")
 EXTRA_PHASES = ("profile", "demo4d_prod", "overlap", "train_run")  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -202,9 +226,11 @@ ATTN64_SHAPES = [
 # 16^2 mid block (a window of 12 targets and 4 inputs in the slice and in
 # production demo_3d alike)
 SLICE_ATTN64_SHAPES = ATTN64_SHAPES + [(32, 256, 20)]
-# production demo_3d (the JAX package's exp=demo_3d preset): 48 cameras,
-# 4 of them inputs, so 44 targets, 44 windows at stride 1
-CLI_CAMERAS, CLI_INPUTS = 48, 4
+# the cli phase: production demo_3d (the JAX package's exp=demo_3d preset:
+# window 12, stride 1) cut to 16 of the bench scene's 48 cameras, inputs [1,
+# 5, 9, 13], so 12 targets and 12 windows (the bench carries the 48-camera
+# task)
+CLI_CAMERAS, CLI_INPUTS = 16, (1, 5, 9, 13)
 ATTN512_SHAPES = [(2, 16384, 1)]  # VAE mid block at 128^2 latents
 # (B, Sq, Sk, H, *blocks) of the single pass (B8) and its batched form (B9):
 # the per-frame 16^2 mid block (the heaviest path shape, first), 512 and
@@ -251,6 +277,20 @@ PROD_TEMPORAL_TASKS = 2
 TEMPORAL_ATTN64_SHAPES = [
     (1, 24 * 4096, 10), (24, 16384, 5), (24, 4096, 10), (1, 24 * 1024, 20), (24, 1024, 20),
     (1, 24 * 256, 20), (24, 256, 20),
+]
+# waves: demo_4d's preset (window 12, stride 2, DDIM, CFG 2.0) on the demo4d
+# scene cut to 2 frames and one spatial round: two tasks of 16 rows, 6
+# windows each; and one no-CFG window step of 16 frames at 128^2 latents
+WAVES_FRAMES, WAVES_CP_FRAMES = 2, 16
+# context parallelism's attention shapes at head dim 64 (B, Sq, Sk, H): each
+# rank of a model axis of n attends Sq = Sk * groups / n queries against the
+# gathered Sk keys of its CFG group; the bench's windows with fused CFG
+# (groups 2), spatial L = 16 at model 4 (three 3D levels) and 8, temporal
+# L = 24 at model 4 (model 2 gives Sq = Sk, the shapes checked already)
+CP_ATTN64_SHAPES = [
+    (1, 32768, 65536, 10), (1, 8192, 16384, 20), (1, 2048, 4096, 20),  # spatial, model 4
+    (1, 16384, 65536, 10),  # spatial, model 8
+    (1, 49152, 98304, 10), (1, 12288, 24576, 20), (1, 3072, 6144, 20),  # temporal, model 4
 ]
 # hot shapes of the tuner timed by the tune phase: the per-frame 16^2, 32^2
 # and 64^2 attention, the 3D 16^2 mid block and, where the two-level kernel
@@ -697,6 +737,11 @@ def phase_kernels(launched: dict) -> dict:
             torch.cuda.empty_cache()
         if not fixed:  # B10: the heaviest launch first, fastest block sizes first
             results[name].sort(key=lambda r: (-r["flop"], r["ms"]))
+    # context parallelism's Sq != Sk shapes, each on its routed kernel
+    results["cp_shapes"] = phase_cp_shapes(gen, cache)
+    for row in results["cp_shapes"]:
+        for check in row.values():
+            results[ATTN_NAMES[check["kernel"]]].append(check)
     fixed = [shape + flags for shape in CONV_SHAPES for flags in CONV_VARIANTS.values()]
     for shape in _ordered(fixed, launched.get("conv3x3", ())):
         results["conv3x3"].append(check_conv(*shape, gen))
@@ -1332,7 +1377,8 @@ def _patched(obj, name: str, make):
 
 
 def phase_cli(unet, vae, work: Path) -> dict:
-    """Production demo_3d from a diffusers directory through the port's CLI."""
+    """Production demo_3d (cut to 16 cameras) from a diffusers directory
+    through the port's CLI."""
     import numpy as np
     import torch
 
@@ -1370,6 +1416,8 @@ def phase_cli(unet, vae, work: Path) -> dict:
 
     wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
     argv = ["exp=demo_3d", f"data.data_dir={data_dir}", f"data.scene_label={BENCH_SCENE}",
+            f"sampler.spa_label_range=[0,{CLI_CAMERAS},1]",
+            "sampler.input_spa_labels=[" + ",".join(map(str, CLI_INPUTS)) + "]",
             f"model.model_dir={model_dir}", f"sampler.output_dir={out}", "evaluating=true"]
     with _patched(loader, "load_pipeline", recording_load), \
             _patched(pp.Diffuman4DPipeline, "sliding_denoise", counting_denoise):
@@ -1412,8 +1460,9 @@ def phase_cli(unet, vae, work: Path) -> dict:
         + ", ".join(f"{k} {v['total_s']} s" for k, v in phases.items() if k.startswith("task/"))
         + f"), export {res.get('to_nerfstudio_s')} s, evaluate {res.get('evaluate_s')} s, "
         f"peak {peak_gb:.2f} GB, launches {launches}")
-    want = {"rc": 0, "jpgs": CLI_CAMERAS, "frames": CLI_CAMERAS, "input_frames": CLI_INPUTS,
-            "metrics_values": CLI_CAMERAS - CLI_INPUTS, "windows": CLI_CAMERAS - CLI_INPUTS,
+    n_in = len(CLI_INPUTS)
+    want = {"rc": 0, "jpgs": CLI_CAMERAS, "frames": CLI_CAMERAS, "input_frames": n_in,
+            "metrics_values": CLI_CAMERAS - n_in, "windows": CLI_CAMERAS - n_in,
             "tasks": 1, "weights_unequal": []}
     if wrong := {k: (res[k], v) for k, v in want.items() if res[k] != v}:
         raise AssertionError(f"cli: (got, expected) {wrong}")
@@ -2256,6 +2305,209 @@ def _check_routes(kernels: dict, expected) -> dict:
     return routed
 
 
+
+def _jpegs(root: Path) -> dict:
+    return {p.relative_to(root).as_posix(): p.read_bytes()
+            for p in sorted(root.rglob("images/*/*.jpg"))}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_waves(work: Path, smi: str) -> dict:
+    """The multi-device sampling paths at world size 1 over NCCL, in a
+    child process started as torchrun starts a rank (``RANK=0
+    WORLD_SIZE=1``): see :func:`waves_child`."""
+    out_json = work / "waves.json"
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--waves-child",
+                           str(out_json)], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall_s = time.perf_counter() - t0
+    (work / "waves_child.log").write_text(proc.stdout + proc.stderr)
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"waves: child exit code {proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(out_json.read_text())
+    # the launched shapes as the other phases record them (JSON made them lists)
+    res.update(wall_s=wall_s, card=smi,
+               shapes={k: [tuple(x) for x in v] for k, v in res["shapes"].items()})
+    log(f"waves ({smi}): NCCL {res['nccl']}, child {wall_s:.1f} s, serial {res['serial_s']:.2f} s,"
+        f" waves {res['waves_s']:.2f} s, CP window step {res['cp']['cp_ms']:.1f} ms "
+        f"(plain {res['cp']['plain_ms']:.1f} ms)")
+    return res
+
+
+def waves_child(out_json: str) -> int:
+    """In a process that torchrun's variables name rank 0 of 1: the process
+    group over NCCL (``parallel/distributed.initialize``); demo_4d's preset
+    on the demo4d scene cut to 2 frames and one spatial round (two tasks),
+    through the serial ``execute_tasks`` and through
+    ``execute_tasks_parallel(make_mesh())`` (waves of one over the NCCL
+    group), which must give equal grids, grid-state bytes and JPEGs, with
+    launch counters zeroed just before each run and read just after; then
+    one full-width no-CFG window step (16 frames at 128^2) through
+    ``make_cp_unet_apply`` on the 1-rank model group, which must equal the
+    plain forward with as many K/V all-gathers as ``cp_comm_budget``
+    counts."""
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch import cli
+    from diffuman4d_torch.configs.presets import build_config
+    from diffuman4d_torch.ops import context_parallel as cpa
+    from diffuman4d_torch.ops import conv, flash_attention as fa
+    from diffuman4d_torch.parallel import distributed as pdist
+    from diffuman4d_torch.parallel.cp_unet import cp_comm_budget, make_cp_unet_apply
+    from diffuman4d_torch.parallel.mesh import make_mesh
+    from diffuman4d_torch.sampling import loader
+    from diffuman4d_torch.utils.tracing import report
+
+    work = ROOT / "build" / "smoke"
+    t0 = time.perf_counter()
+    if not pdist.initialize("cuda"):
+        raise AssertionError("waves: initialize() saw no RANK / WORLD_SIZE")
+    res = {"init_s": time.perf_counter() - t0, "backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size(),
+           "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+    log(f"waves: process group {res['backend']} (NCCL {res['nccl']}), world {res['world']}, "
+        f"up in {res['init_s']:.2f} s")
+    if res["backend"] != "nccl" or res["world"] != 1:
+        raise AssertionError(f"waves: {res}")
+    mesh = make_mesh()
+    gathers = []
+    all_gather = torch.distributed.all_gather
+
+    def counting_all_gather(*a, **k):
+        gathers.append(tuple(a[1].shape))
+        return all_gather(*a, **k)
+
+    torch.distributed.all_gather = counting_all_gather
+    data_dir = _d4d_scene(work)
+    argv = ["exp=demo_4d", f"data.data_dir={data_dir}", "data.scene_label=scene0",
+            f"sampler.spa_label_range=[0,{D4D_CAMERAS},1]",
+            f"sampler.tem_label_range=[0,{WAVES_FRAMES},1]",
+            "sampler.input_spa_labels=[" + ",".join(map(str, D4D_INPUTS)) + "]",
+            "sampler.alternation_rounds=1"]
+    cfg = build_config(argv)
+    pipe = loader.load_pipeline(cfg.model, cfg.sampler, cfg.data, device="cuda")
+    wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
+    runs = {}
+    with torch.no_grad():
+        for name in ("serial", "waves"):
+            out = work / f"waves_{name}"
+            shutil.rmtree(out, ignore_errors=True)
+            pipe.clear_condition_caches()
+            sampler = cli.build_sampler(build_config(argv + [f"sampler.output_dir={out}"]), pipe)
+            report(reset=True)
+            _reset(wrappers.values())
+            gathers.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "serial":
+                sampler.execute_tasks()
+            else:
+                sampler.execute_tasks_parallel(mesh)
+            torch.cuda.synchronize()
+            launches, shapes = _kernel_counts(wrappers)
+            runs[name] = {"s": time.perf_counter() - t0, "phases": report(reset=True),
+                          "launches": launches, "shapes": shapes, "gathers": list(gathers),
+                          "grid": sampler.grid_latents.clone(), "t_idx": sampler.grid_t_idx,
+                          "state": Path(sampler._state_path).read_bytes(), "jpgs": _jpegs(out)}
+            log(f"waves: {name} {runs[name]['s']:.2f} s, phases "
+                + ", ".join(f"{k} {v['total_s']} s x{v['count']}"
+                            for k, v in runs[name]["phases"].items()))
+    serial, waves = runs["serial"], runs["waves"]
+    res.update(serial_s=serial["s"], waves_s=waves["s"], phases=waves["phases"],
+               serial_phases=serial["phases"], launches=waves["launches"],
+               shapes=waves["shapes"], wave_gathers=waves["gathers"],
+               jpgs=len(waves["jpgs"]),
+               grid_equal=torch.equal(serial["grid"], waves["grid"]),
+               t_idx_equal=bool(np.array_equal(serial["t_idx"], waves["t_idx"])),
+               state_equal=serial["state"] == waves["state"],
+               jpgs_equal=serial["jpgs"] == waves["jpgs"])
+    del runs, sampler
+    torch.cuda.empty_cache()
+
+    # one no-CFG window step through the context-parallel apply
+    unet, L, dev, lat = pipe.unet, WAVES_CP_FRAMES, pipe.device, pipe.latent_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((L, lat, lat, unet.config.in_channels), generator=gen,
+                    device=dev).to(unet.dtype)
+    pf = torch.randn((L, lat, lat, unet.config.block_out_channels[0]), generator=gen,
+                     device=dev).to(unet.dtype)
+    t = torch.full((L,), 500, device=dev)
+    tem = torch.zeros((L,), dtype=torch.int32, device=dev)
+    cp_fwd = make_cp_unet_apply(unet, mesh)
+    with torch.no_grad():
+        plain = unet(x, t, tem_indices=tem, num_frames=L, pose_features=pf)
+        cpa.cp_attention_grouped.all_gathers = 0
+        gathers.clear()
+        cp = cp_fwd(x, t, tem, L, pose_features=pf)
+        n_gathers = cpa.cp_attention_grouped.all_gathers
+        n_collectives = len(gathers)
+        plain_ms = cuda_ms(lambda: unet(x, t, tem_indices=tem, num_frames=L,
+                                        pose_features=pf), iters=2)
+        cp_ms = cuda_ms(lambda: cp_fwd(x, t, tem, L, pose_features=pf), iters=2)
+    budget = cp_comm_budget(unet.config, num_frames=L, latent_hw=lat, groups=1, n_model=1)
+    res["cp"] = {"frames": L, "equal": torch.equal(plain, cp), "rel_l2": _rel_l2(cp, plain),
+                 "all_gathers": n_gathers, "budget": budget["expected_all_gathers"],
+                 "collectives": n_collectives, "plain_ms": plain_ms, "cp_ms": cp_ms,
+                 "finite": bool(torch.isfinite(cp).all())}
+    torch.distributed.destroy_process_group()
+    Path(out_json).write_text(json.dumps(res))
+    log(f"waves: {json.dumps({k: v for k, v in res.items() if k != 'shapes'})}")
+
+    want = {"grid_equal": True, "t_idx_equal": True, "state_equal": True, "jpgs_equal": True,
+            "jpgs": D4D_CAMERAS * WAVES_FRAMES}
+    if wrong := {k: (res[k], v) for k, v in want.items() if res[k] != v}:
+        raise AssertionError(f"waves vs serial: (got, expected) {wrong}")
+    # each wave all-gathers its latents and timestep indices over the data axis
+    if len(res["wave_gathers"]) != 2 * WAVES_FRAMES:
+        raise AssertionError(f"waves: collectives {res['wave_gathers']}")
+    if missing := [k for k in ("flash_fwd_d64_window", "flash_fwd_d64_frame", "flash_fwd_d512",
+                               "conv3x3") if not res["launches"].get(k)]:
+        raise AssertionError(f"waves: {missing} never launched: {res['launches']}")
+    c = res["cp"]
+    if not (c["finite"] and (c["equal"] or c["rel_l2"] <= E2E_REL_TOL)
+            and c["all_gathers"] == c["budget"] and c["collectives"] == c["budget"] + 1):
+        raise AssertionError(f"waves: CP window step {c}")
+    return 0
+
+
+def phase_cp_shapes(gen, cache: dict) -> list:
+    """Context parallelism's attention shapes (``CP_ATTN64_SHAPES``) on the
+    kernel ``route`` gives each, against the plain version, each beside its
+    Sq = Sk time (one rank attending the whole CFG group's queries). The
+    temporal mid block (Sk 6,144, over the single pass's 4,096) must route
+    to the d = 64 skewed kernel."""
+    import torch
+
+    out = []
+    for B, Sq, Sk, H in CP_ATTN64_SHAPES:
+        row = {}
+        for tag, S in (("cp", Sq), ("full", Sk)):
+            name, params = _routed(B, S, Sk, H, 64)
+            row[tag] = {"kernel": name, **check_attention(B, S, Sk, H, 64, gen, name,
+                                                          tuple(params.values()), cache)}
+            torch.cuda.empty_cache()
+        if Sk > 4096 and row["cp"]["kernel"] != "flash_d64":
+            raise AssertionError(f"CP B{B} Sq{Sq} Sk{Sk} H{H} routes to {row['cp']['kernel']}")
+        log(f"  CP B{B}xSq{Sq}xSk{Sk}xH{H}: {row['cp']['kernel']} {row['cp']['ms']:.3f} ms, "
+            f"Sq = Sk {row['full']['ms']:.3f} ms ({row['cp']['ms'] / row['full']['ms']:.3f}x, "
+            f"{Sq / Sk:.3f} of the queries)")
+        out.append(row)
+    return out
+
+
 # -------------------------------------------------------------------- main
 _FA = "diffuman4d_tpu/ops/flash_attention.py"
 _FB = "diffuman4d_tpu/ops/flash_backward.py"
@@ -2266,7 +2518,7 @@ _FB = "diffuman4d_tpu/ops/flash_backward.py"
 # and the skewed-pipeline kernel (B1/B2) at the 3D and per-frame shapes, the
 # single pass (B8) at the per-frame 32^2 level; the tuner launches every
 # candidate.
-PATHS = ("demo4d", "cli", "slice", "variants")
+PATHS = ("demo4d", "cli", "slice", "variants", "waves")
 KERNEL_META = {
     "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn_skew_hopper.cu",
                              f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0,
@@ -2301,6 +2553,7 @@ def main() -> int:
                     help=f"comma-separated subset of {','.join(PHASES + EXTRA_PHASES)}")
     ap.add_argument("--out", default=str(ROOT / "results" / "chip_smoke.json"),
                     help="where to write the full results as JSON")
+    ap.add_argument("--waves-child", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if unknown := set(phases) - set(PHASES + EXTRA_PHASES):
@@ -2315,6 +2568,8 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} holds no diffuman4d_torch package", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.waves_child:  # the waves phase's rank process
+        return waves_child(args.waves_child)
 
     smi = nvidia_smi_line()
     log(smi)
@@ -2379,9 +2634,11 @@ def main() -> int:
         run("overlap", phase_overlap, work)
     if "train_run" in phases:
         run("train_run", phase_train_run, work, smi)
+    if "waves" in phases:
+        run("waves", phase_waves, work, smi)
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
-        for phase in ("tune", "bench", "slice", "cli", "demo4d", "train", "variants"):
+        for phase in ("tune", "bench", "slice", "cli", "demo4d", "train", "variants", "waves"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

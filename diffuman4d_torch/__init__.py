@@ -2,7 +2,7 @@
 ``diffuman4d_tpu`` for NVIDIA Hopper GPUs.
 
 It mirrors the JAX package's layout (``ops``, ``models``, ``schedulers``,
-``data``, ``sampling``, ``training``, ``io``), keeps its NHWC / (B, S, H, D) layouts at
+``data``, ``sampling``, ``parallel``, ``training``, ``io``), keeps its NHWC / (B, S, H, D) layouts at
 public functions, and keeps its own copies of the numpy-only host modules
 (data loading, windows, outputs) and a ``training`` sub-package. It never
 imports the JAX package, jax or flax. The hand-written CUDA kernels live in ``csrc`` and are

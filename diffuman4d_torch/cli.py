@@ -5,13 +5,21 @@ Usage mirrors the JAX package's, so one command line drives both:
 
     python -m diffuman4d_torch.cli exp=demo_4d data.scene_label=0811_06 \
         data.data_dir=./data/dna_rendering model.model_dir=./models/diffuman4d
+    torchrun --nproc_per_node 8 -m diffuman4d_torch.cli exp=demo_4d ...   # waves of 8
 
 Flags ``sampling`` / ``to_nerfstudio`` / ``evaluating`` select the stages
 (configs/test.yaml:18-20). ``device=cuda|cpu`` (default ``cuda``) takes the
 place of the JAX CLI's ``platform=``: without a card the CLI refuses to run
-unless ``device=cpu`` is given. The output directory receives
+unless ``device=cpu`` is given. Under ``torchrun`` (``RANK`` /
+``WORLD_SIZE`` set) the CLI first brings up the process group
+(``parallel/distributed.py``: NCCL on cards, one per rank, gloo with
+``device=cpu``) and samples in task waves as wide as the world; if the
+group cannot be brought up it raises, it never runs one rank alone. The
+export and the evaluation then run on rank 0 after every rank has finished
+(the JAX CLI runs them on every process, which race to write the same
+files; ``ROADMAP.md`` C). The output directory receives
 ``config_tree.log``, ``job.log``, ``images/{cam}/{frame}.jpg``,
-``phases.json``, the nerfstudio export (``transforms.json``,
+``phases.json`` (rank 0's), the nerfstudio export (``transforms.json``,
 ``transforms_input.json``, ``export_manifest.json``, ``fmasks/``,
 ``images_alpha/``), the grid state ``state/grid_state.d4d`` (written after
 every round and every 24 tasks; a later call on the same output directory
@@ -58,21 +66,35 @@ def main(argv: list[str] | None = None) -> int:
         print("no CUDA device: the port runs on the card; pass device=cpu to run on the CPU",
               file=sys.stderr)
         return 2
-    cfg = build_config(argv)
-    print(config_tree(cfg))
+    from diffuman4d_torch.parallel import distributed as pdist
 
-    os.makedirs(cfg.sampler.output_dir, exist_ok=True)
-    with open(osp.join(cfg.sampler.output_dir, "config_tree.log"), "w") as f:
-        f.write(config_tree(cfg))
-    # per-run job.log (reference: hydra colorlog job.log)
-    fh = logging.FileHandler(osp.join(cfg.sampler.output_dir, "job.log"))
-    fh.setFormatter(logging.Formatter(_FORMAT))
-    logging.getLogger().addHandler(fh)
+    # torchrun runs: the process group first, as the JAX CLI's initialize()
+    started = not torch.distributed.is_initialized() and pdist.initialize(device)
     try:
-        _run(cfg, device)
+        if device.type == "cuda":  # a rank's own card (initialize set it)
+            device = torch.device("cuda", torch.cuda.current_device())
+        cfg = build_config(argv)
+        lead = pdist.rank() == 0
+        if lead:
+            print(config_tree(cfg))
+        os.makedirs(cfg.sampler.output_dir, exist_ok=True)
+        fh = None
+        if lead:
+            with open(osp.join(cfg.sampler.output_dir, "config_tree.log"), "w") as f:
+                f.write(config_tree(cfg))
+            # per-run job.log (reference: hydra colorlog job.log)
+            fh = logging.FileHandler(osp.join(cfg.sampler.output_dir, "job.log"))
+            fh.setFormatter(logging.Formatter(_FORMAT))
+            logging.getLogger().addHandler(fh)
+        try:
+            _run(cfg, device)
+        finally:
+            if fh is not None:
+                logging.getLogger().removeHandler(fh)
+                fh.close()
     finally:
-        logging.getLogger().removeHandler(fh)
-        fh.close()
+        if started:
+            torch.distributed.destroy_process_group()
     return 0
 
 
@@ -115,6 +137,7 @@ def build_sampler(cfg: RunConfig, pipeline, target_pixels: bool = True, **sample
 
 
 def _run(cfg: RunConfig, device) -> None:
+    from diffuman4d_torch.parallel import distributed as pdist
     from diffuman4d_torch.sampling.loader import load_pipeline
     from diffuman4d_torch.sampling.runner import SamplingRunner
     from diffuman4d_torch.utils.tracing import phase, report
@@ -131,6 +154,11 @@ def _run(cfg: RunConfig, device) -> None:
         with phase("cli/sampling"):
             runner.inference()
         log.info("sampling finished in %.1fs", time.time() - t0)
+    # the export and the evaluation read every rank's images: rank 0 runs
+    # them once every rank is done
+    pdist.barrier()
+    if pdist.rank() != 0:
+        return
 
     scene_dir = osp.join(osp.expandvars(cfg.data.data_dir), cfg.data.scene_label)
     if cfg.to_nerfstudio:

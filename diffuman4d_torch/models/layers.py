@@ -88,7 +88,9 @@ class GroupNorm(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention (diffusers ``Attention``): qkv without
-    bias, output projection with bias."""
+    bias, output projection with bias. With ``cp`` (an
+    ``ops.context_parallel.ContextParallel``) the queries are this rank's
+    frames and K/V are gathered from the ranks of its mesh axis."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  attn_implementation: str = "auto"):
@@ -101,13 +103,16 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cp=None) -> torch.Tensor:
         b, s, _ = x.shape
         shape = (b, s, self.num_heads, self.head_dim)
         q = self.to_q(x).reshape(shape)
         k = self.to_k(x).reshape(shape)
         v = self.to_v(x).reshape(shape)
-        out = dot_product_attention(q, k, v, implementation=self.attn_implementation)
+        if cp is not None:
+            out = cp.attend(q, k, v, implementation=self.attn_implementation)
+        else:
+            out = dot_product_attention(q, k, v, implementation=self.attn_implementation)
         out = out.reshape(b, s, -1)
         return self.to_out[0](out)
 

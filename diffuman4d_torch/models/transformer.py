@@ -4,6 +4,11 @@ The 3D attention is one regroup: tokens (B*T, HW, C) become (B, T*HW, C)
 before attn1 so it spans every frame of the window; attn2 is per-frame
 self-attention; then a GEGLU feed-forward. Each sub-layer is pre-norm with
 a residual add.
+
+Context parallelism (the JAX module's ``attn_implementation="cp"``): a
+block's ``cp`` (set through ``UNetMultiviewCondition.configured``) makes
+attn1's 3D path gather K/V over the mesh; the per-frame attn2, and attn1
+where it attends one frame, stay local.
 """
 
 from __future__ import annotations
@@ -33,13 +38,14 @@ class MultiviewTransformerBlock(nn.Module):
         self.attn2 = Attention(dim, num_heads, head_dim, attn_implementation)
         self.norm3 = LayerNorm32(dim, eps=1e-5)
         self.ff = FeedForward(dim)
+        self.cp = None  # an ops.context_parallel.ContextParallel for attn1's 3D path
 
     def forward(self, x: torch.Tensor, num_frames: int = 1) -> torch.Tensor:
         bt, hw, c = x.shape
         h = self.norm1(x)
         if num_frames > 1:
             h = h.reshape(bt // num_frames, num_frames * hw, c)
-        h = self.attn1(h)
+        h = self.attn1(h, cp=self.cp if num_frames > 1 else None)
         x = x + h.reshape(bt, hw, c)
         x = x + self.attn2(self.norm2(x))
         return x + self.ff(self.norm3(x))

@@ -16,6 +16,9 @@ is handed down to every ``Attention`` ("train" selects the differentiable
 kernels), and ``remat`` recomputes each down / mid / up block and the pose
 encoder in the backward pass (``torch.utils.checkpoint``), so that only
 block boundaries are kept. Neither changes a parameter name.
+``configured(cp=...)`` runs the 3D attention context-parallel (the JAX
+module's ``attn_implementation="cp"`` / ``cp_groups``), as
+``parallel/cp_unet.py`` drives it.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from diffuman4d_torch.models.layers import (
 )
 from diffuman4d_torch.models.freeu import FreeUConfig
 from diffuman4d_torch.models.pose_encoder import PoseEncoder
+from diffuman4d_torch.models.transformer import MultiviewTransformerBlock
 from diffuman4d_torch.models.unet_blocks import (
     CrossAttnDownBlockMultiview,
     CrossAttnUpBlockMultiview,
@@ -145,22 +149,31 @@ class UNetMultiviewCondition(nn.Module):
         return next(m.attn_implementation for m in self.modules() if isinstance(m, Attention))
 
     @contextlib.contextmanager
-    def configured(self, attn_implementation: str | None = None, remat: bool | None = None):
-        """Run with another attention implementation and / or remat setting,
-        restored on exit (what ``clone(...)`` does for the flax module)."""
+    def configured(self, attn_implementation: str | None = None, remat: bool | None = None,
+                   cp=None):
+        """Run with another attention implementation, remat setting and / or
+        context-parallel setting of the transformer blocks (an
+        ``ops.context_parallel.ContextParallel``), restored on exit (what
+        ``clone(...)`` does for the flax module)."""
         attns = [m for m in self.modules() if isinstance(m, Attention)]
-        saved = ([m.attn_implementation for m in attns], self.remat)
+        blocks = [m for m in self.modules() if isinstance(m, MultiviewTransformerBlock)]
+        saved = ([m.attn_implementation for m in attns], self.remat, [m.cp for m in blocks])
         if attn_implementation is not None:
             for m in attns:
                 m.attn_implementation = attn_implementation
         if remat is not None:
             self.remat = remat
+        if cp is not None:
+            for m in blocks:
+                m.cp = cp
         try:
             yield self
         finally:
             for m, impl in zip(attns, saved[0]):
                 m.attn_implementation = impl
             self.remat = saved[1]
+            for m, c in zip(blocks, saved[2]):
+                m.cp = c
 
     def _run(self, fn, *args):
         """``fn(*args)``, recomputed in the backward pass when remat is on."""

@@ -20,6 +20,15 @@ decode (counterpart of ``diffuman4d_tpu/sampling/pipeline.py``).
   history (``aux``) is gathered and scattered by the windows' rows beside
   the latents.
 * :meth:`Diffuman4DPipeline.decode` -- micro-batched VAE decode to uint8.
+* :meth:`Diffuman4DPipeline.enable_context_parallel` -- route each window
+  step's UNet forward through ``parallel/cp_unet.py`` over a mesh's
+  ``model`` axis, for fused CFG (two groups) and split CFG (one).
+
+The JAX package's ``sliding_denoise_batch`` vmaps a wave's tasks over the
+mesh's ``data`` axis; in the port each rank runs its own task of the wave
+through :meth:`sliding_denoise` (streamed chunks and multistep history
+included) and the sampler gathers the wave's rows. Every rank holds its
+own weights, so ``commit_mesh_params`` has no counterpart.
 
 The VAE and the pose encoder always run on micro-batches of exactly
 ``vae_batch`` (``vae_decode_batch``) rows, the last one padded, and a
@@ -149,6 +158,16 @@ class Diffuman4DPipeline:
         self._pix_cache = ByteLRU(pix_cache_mb << 20)
         self._pose_cache = ByteLRU(pose_cache_mb << 20)
         self._neg_pose = None
+        self._cp_fwd = None  # the context-parallel forward (enable_context_parallel)
+
+    def enable_context_parallel(self, mesh, axis: str = "model") -> None:
+        """Split each window step's frame axis over ``mesh``'s ``axis`` when
+        it has more than one rank, so that one task's denoise uses every
+        rank of its model group; with one rank, the plain forward."""
+        from diffuman4d_torch.parallel.cp_unet import make_cp_unet_apply
+
+        self._cp_fwd = make_cp_unet_apply(self.unet, mesh, axis) if mesh.shape[axis] > 1 \
+            else None
 
     def clear_condition_caches(self) -> None:
         """Drop every per-frame condition cache (skeletons, conditional
@@ -422,6 +441,8 @@ class Diffuman4DPipeline:
 
         def eps_of(xh, pluckerh, poseh, skelh, th, temh, maskh):
             parts = [xh, pluckerh] + ([skelh] if skelh is not None else []) + [maskh]
+            if self._cp_fwd is not None:
+                return self._cp_fwd(torch.cat(parts, dim=-1), th, temh, L, pose_features=poseh)
             return self.unet(torch.cat(parts, dim=-1), th, tem_indices=temh, num_frames=L,
                              pose_features=poseh)
 

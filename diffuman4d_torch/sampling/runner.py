@@ -3,11 +3,13 @@
 src/samplers/sampling_runner.py:14-84).
 
 The public surface is the JAX package's: ``inference()`` /
-``evaluate()`` / ``to_nerfstudio()``. ``inference`` runs the sampler's
-serial path, one task after another on the pipeline's device, resuming from
-the output directory's grid state. The JAX runner's task waves over a device
-mesh and its context-parallel window steps (its ``runner.py:37-63``) are not
-ported yet (``ROADMAP.md`` A.7).
+``evaluate()`` / ``to_nerfstudio()``. ``inference`` runs over a mesh of
+ranks (``parallel/mesh.py``; by default every rank of the process group on
+the ``data`` axis): a mesh of more than one rank runs task waves, and a
+``model`` axis above 1 also splits each window step's frames over its ranks
+(context parallelism). A 1 x 1 mesh, a one-card run, keeps the sampler's
+serial path with its IO-thread prefetch, where the JAX runner runs waves of
+one (``ROADMAP.md`` C); the two give the same bytes.
 """
 
 from __future__ import annotations
@@ -21,13 +23,36 @@ log = logging.getLogger(__name__)
 
 
 class SamplingRunner:
-    def __init__(self, sampler: SlidingIterativeSampler):
+    def __init__(self, sampler: SlidingIterativeSampler, mesh=None):
+        # mesh: a parallel.mesh.Mesh; None = every rank on the data axis
         self.sampler = sampler
+        self.mesh = mesh
+
+    def _resolve_mesh(self):
+        if self.mesh is not None:
+            return self.mesh
+        from diffuman4d_torch.parallel.distributed import global_mesh
+
+        return global_mesh()
 
     def inference(self) -> None:
         """All alternation rounds + completeness check
-        (sampling_runner.py:45-62)."""
-        self.sampler.execute_tasks()
+        (sampling_runner.py:45-62). The mesh decides the parallelism: the
+        ``data`` axis runs task waves, a ``model`` axis above 1 puts all its
+        ranks on one task's window steps, so a (1, N) mesh spends N cards on
+        one task's latency."""
+        mesh = self._resolve_mesh()
+        if mesh.size == 1:
+            self.sampler.execute_tasks()
+            return
+        if mesh.shape["model"] > 1:
+            log.info("context-parallel window steps over %d ranks ('model' axis)%s",
+                     mesh.shape["model"], f" x {mesh.shape['data']} task waves ('data' axis)"
+                     if mesh.shape["data"] > 1 else "")
+            self.sampler.pipeline.enable_context_parallel(mesh)
+        else:
+            log.info("task waves over %d ranks", mesh.shape["data"])
+        self.sampler.execute_tasks_parallel(mesh)
 
     def _dump_phases(self) -> None:
         """Per-phase wall-clock table -> phases.json + job log. The CLI

@@ -25,19 +25,35 @@ every checkpoint and grid check first waits for the saver, so a state never
 claims a task whose images are not on disk. The condition caches are
 cleared at every domain switch. The JAX sampler's ``resume=False``,
 ``checkpoint_rounds=False`` and ``save_crop_params`` are not ported: no
-entry point sets them (``ROADMAP.md`` A.3.e).
+entry point sets them.
+
+Task waves (:meth:`execute_tasks_parallel`, the JAX sampler's
+``execute_tasks_parallel`` / ``_execute_waves``): over a mesh of ranks
+(``parallel/mesh.py``) each wave is ``mesh.shape["data"]`` tasks, data row
+r taking task i + r, a short last wave padded with the round's last task.
+Every rank of a model group loads, prepares and denoises the same task
+(deterministic, so nothing is broadcast; a model axis above 1 splits each
+window step, ``pipeline.enable_context_parallel``), and its model-rank 0
+saves the task's images. Every rank holds a replica of the grid: after a
+wave the wave's latents, timestep indices and multistep history are
+all-gathered over the data axis into every replica. Rank 0 alone writes
+the state, after every rank has flushed its saves; the end-of-run check
+unions every rank's saved cells. The JAX sampler's per-task noise keys
+(``_task_key``) have no counterpart: the port's noise is drawn per grid cell
+and per frame label. The host mirror is not ported.
 
 Each task's stages are timed as ``task/*`` phases (``utils/tracing.py``):
 ``load_sample`` and ``decode_save`` on their threads, overlapping the main
 thread's ``prepare_conditions`` and ``sliding_denoise``, so the phases sum to
 more than the wall time; the decode runs on the card's one stream, so its
 device time also lands inside the main thread's next synchronised phase.
-Task waves over several devices (``ROADMAP.md`` A.7) are not ported.
+A wave adds ``wave/gather``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import os.path as osp
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -47,7 +63,9 @@ import numpy as np
 import torch
 
 from diffuman4d_torch.data import Sample, SpaTemDataset
+from diffuman4d_torch.data.cameras import nearest_input_camera
 from diffuman4d_torch.io.gridstate import read_state, write_state
+from diffuman4d_torch.parallel import distributed as pdist
 from diffuman4d_torch.sampling.outputs import (
     check_sampling_results,
     save_debug_grid,
@@ -55,9 +73,10 @@ from diffuman4d_torch.sampling.outputs import (
 )
 from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
 from diffuman4d_torch.sampling.windows import build_windows
-from diffuman4d_torch.utils.tracing import phase
+from diffuman4d_torch.utils.tracing import RankedLogger, phase
 
 log = logging.getLogger(__name__)
+rlog = RankedLogger(__name__)
 
 
 @dataclass
@@ -151,6 +170,7 @@ class SlidingIterativeSampler:
         self._resume_tasks_done = 0
         self._saver: ThreadPoolExecutor | None = None
         self._save_futs: list = []
+        self._saved_cells: set[tuple[str, str]] = set()  # (spa, tem) written by this process
         self._try_resume()
 
     # -- grid state --------------------------------------------------------
@@ -173,7 +193,10 @@ class SlidingIterativeSampler:
     def save_state(self, tasks_done: int = 0) -> None:
         """Write the grid. ``tasks_done`` > 0 marks an intra-round state:
         that many tasks of round ``_completed_rounds`` (the 0-based next
-        round) are already in the grid, and a resume skips them."""
+        round) are already in the grid, and a resume skips them. Every rank
+        holds the grid; rank 0 writes it."""
+        if pdist.rank() != 0:
+            return
         with phase("save_state/d2h", sync=False):
             arrays = {"latents": _to_host_bits(self.grid_latents)}
             # in name order, as the JAX sampler's (key-sorted) history
@@ -305,10 +328,21 @@ class SlidingIterativeSampler:
         return build_windows(targets, inputs, task.domain, cfg.window_size, cfg.sliding_stride,
                              cfg.sliding_shift, cfg.bidirectional)
 
-    def execute_one_task(self, task: Task, sample: Sample | None = None,
-                         save_async: bool = False) -> None:
-        if sample is None:
-            sample = self._load_timed(task)
+    def task_labels(self, task: Task) -> list[tuple[str, str, str]]:
+        """The (scene, spa, tem) row labels ``load_sample`` gives ``task``,
+        without reading a file: every rank scatters every task of a wave."""
+        scene = self.dataset.scene_label
+        if task.domain == "spatial":
+            return [(scene, spa, task.domain_label) for spa in self.spa_labels]
+        cameras = self.dataset.cameras[scene]
+        cond_spa = self.input_spa_labels[nearest_input_camera(
+            cameras[task.domain_label].pose, [cameras[s].pose for s in self.input_spa_labels])]
+        return [(scene, spa, tem) for spa in (cond_spa, task.domain_label)
+                for tem in self.tem_labels]
+
+    def _denoise_task(self, task: Task, sample: Sample):
+        """One task's conditions and sliding denoise from the grid's rows.
+        Returns (latents, t_idx, aux) of the task's rows, not yet scattered."""
         spa, tem = self._grid_cells(sample.labels)
         with phase("task/prepare_conditions"):
             cond = self.pipeline.prepare_conditions(sample)
@@ -321,13 +355,27 @@ class SlidingIterativeSampler:
             k: v[spa_t, tem_t] for k, v in self.grid_aux.items()}
         windows = self._windows_for(task, len(sample.labels))
         with phase("task/sliding_denoise"):
-            latents, t_idx, aux = self.pipeline.sliding_denoise(cond, latents, t_idx, windows,
-                                                                task.domain, aux=aux)
-        del cond
+            return self.pipeline.sliding_denoise(cond, latents, t_idx, windows, task.domain,
+                                                 aux=aux)
+
+    def _scatter(self, labels, latents: torch.Tensor, t_idx: np.ndarray,
+                 aux: dict | None) -> None:
+        """Write a task's rows (``labels``' cells) into the grid."""
+        spa, tem = self._grid_cells(labels)
+        dev = self.grid_latents.device
+        spa_t = torch.from_numpy(spa).to(dev)
+        tem_t = torch.from_numpy(tem).to(dev)
         self.grid_latents[spa_t, tem_t] = latents
         self.grid_t_idx[spa, tem] = t_idx
         for k, v in (aux or {}).items():
             self.grid_aux[k][spa_t, tem_t] = v
+
+    def execute_one_task(self, task: Task, sample: Sample | None = None,
+                         save_async: bool = False) -> None:
+        if sample is None:
+            sample = self._load_timed(task)
+        latents, t_idx, aux = self._denoise_task(task, sample)
+        self._scatter(sample.labels, latents, t_idx, aux)
         if save_async and self._saver is not None:
             # decode + JPEG writes overlap the next task's denoise; joined by
             # _flush_saves before any checkpoint or grid check
@@ -356,11 +404,13 @@ class SlidingIterativeSampler:
                 images = self.pipeline.decode(latents[torch.from_numpy(rows).to(latents.device)])
                 save_final_images(images, [sample.labels[i] for i in rows],
                                   [sample.crops[i] for i in rows], self.output_dir)
+                self._saved_cells.update(sample.labels[i][1:3] for i in rows)
             inp = np.nonzero(sample.cond_masks == 0.0)[0]
             if inp.size:
                 save_final_images(sample.pixel_values[inp] * 0.5 + 0.5,
                                   [sample.labels[i] for i in inp],
                                   [sample.crops[i] for i in inp], self.output_dir)
+                self._saved_cells.update(sample.labels[i][1:3] for i in inp)
             if self.save_debug_grids:
                 self._save_debug_grid(task, sample, latents)
 
@@ -425,19 +475,10 @@ class SlidingIterativeSampler:
                 budget_out = self._budget_out()
                 n_round = len(self.all_tasks[round_idx])
                 if done == n_round:
-                    self._flush_saves()
-                    self._completed_rounds = round_idx + 1
-                    self.validate_grid(self._completed_rounds)
-                    self.save_state()
-                    nxt = round_idx + 1
-                    if (nxt < len(self.all_tasks) and self.all_tasks[nxt]
-                            and self.all_tasks[nxt][0].domain != task.domain):
-                        # the finished domain's rows are not revisited soon
-                        self.pipeline.clear_condition_caches()
+                    self._round_end(round_idx)
                 elif self.checkpoint_every_tasks > 0 and (
                         budget_out or done % self.checkpoint_every_tasks == 0):
-                    self._flush_saves()
-                    self.save_state(tasks_done=done)
+                    self._checkpoint(tasks_done=done)
                 log.info("round %d/%d (%s): task %d/%d done", round_idx + 1,
                          len(self.all_tasks), task.domain, done, n_round)
                 if budget_out and (round_idx, done) != (len(self.all_tasks) - 1,
@@ -453,4 +494,127 @@ class SlidingIterativeSampler:
             self._saver.shutdown(wait=True)
             self._saver = None
         if not check_sampling_results(self.spa_labels, self.tem_labels, self.output_dir):
+            raise ValueError("Sampling failed: output grid incomplete.")
+
+    def execute_tasks_parallel(self, mesh) -> None:
+        """Every task not yet in the grid, in waves of ``mesh.shape["data"]``
+        tasks over a mesh of ranks (every rank calls it, with its own
+        sampler on the same output directory): round-end checks,
+        checkpoints on the wave cadence, budgets and the completeness check
+        as in :meth:`execute_tasks`. This rank's next task loads on an IO
+        thread and its outputs are written on a saver thread.
+        ``time_budget_s`` is refused above one rank: a clock could stop the
+        ranks at different waves."""
+        n_wave, (row,) = mesh.shape["data"], pdist.local_data_rows(mesh)
+        saves = mesh.index("model") == 0
+        multi = pdist.is_multi()
+        if multi and self.time_budget_s is not None:
+            raise ValueError(
+                "time_budget_s is single-process only (a clock-based stop "
+                "branch is not deterministic across hosts); size multi-host "
+                "sessions with task_budget instead"
+            )
+        self._exec_t0 = time.perf_counter()
+        waves: list[tuple[int, int, int]] = []  # (round, first task, wave number in the round)
+        for round_idx, tasks in enumerate(self.all_tasks):
+            if round_idx < self._completed_rounds:
+                continue
+            start, self._resume_tasks_done = self._resume_tasks_done, 0
+            waves.extend((round_idx, i, w) for w, i in enumerate(range(start, len(tasks), n_wave)))
+
+        def mine(w: int) -> Task:
+            """This rank's task of wave ``w``: a short last wave repeats the
+            round's last task."""
+            round_idx, i, _ = waves[w]
+            tasks = self.all_tasks[round_idx]
+            return tasks[min(i + row, len(tasks) - 1)]
+
+        dev = self.grid_latents.device
+        prefetch = ThreadPoolExecutor(max_workers=1)
+        self._saver = ThreadPoolExecutor(max_workers=1)
+        fut = None
+        try:
+            for w, (round_idx, i, w_num) in enumerate(waves):
+                tasks = self.all_tasks[round_idx]
+                n_real = min(n_wave, len(tasks) - i)
+                task = mine(w)
+                sample = fut.result() if fut is not None else self._load_timed(task)
+                fut = prefetch.submit(self._load_timed, mine(w + 1)) if w + 1 < len(waves) \
+                    else None
+                latents, t_idx, aux = self._denoise_task(task, sample)
+                with phase("wave/gather"):
+                    lat_b = pdist.gather_wave_rows(mesh, latents)
+                    ti_b = pdist.gather_wave_rows(mesh, torch.from_numpy(t_idx).to(dev))
+                    ti_b = ti_b.cpu().numpy()
+                    aux_b = {k: pdist.gather_wave_rows(mesh, v) for k, v in (aux or {}).items()}
+                for k in range(n_real):  # padded duplicates are not scattered twice
+                    self._scatter(self.task_labels(tasks[i + k]), lat_b[k], ti_b[k],
+                                  {n: v[k] for n, v in aux_b.items()})
+                if saves and row < n_real:
+                    self._save_futs.append(self._saver.submit(
+                        self._save_task_outputs, task, sample, latents, t_idx))
+                done = i + n_real
+                self._tasks_run += n_real
+                budget_out = self._budget_out()
+                last = (round_idx, done) == (len(self.all_tasks) - 1, len(tasks))
+                if done == len(tasks):
+                    self._round_end(round_idx)
+                elif self.checkpoint_every_tasks > 0 and (
+                        budget_out
+                        or (w_num + 1) % max(1, -(-self.checkpoint_every_tasks // n_wave)) == 0):
+                    self._checkpoint(tasks_done=done)
+                rlog.info("round %d/%d (%s): tasks %d-%d/%d done", round_idx + 1,
+                          len(self.all_tasks), task.domain, i + 1, done, len(tasks))
+                if budget_out and not last:
+                    rlog.info("budget (tasks=%s) reached at round %d task %d/%d -- state "
+                              "saved, stopping for resume", self.task_budget, round_idx + 1,
+                              done, len(tasks))
+                    self._flush_saves()
+                    return
+            self._flush_saves()
+        finally:
+            prefetch.shutdown(wait=True, cancel_futures=True)
+            self._saver.shutdown(wait=True)
+            self._saver = None
+        self._check_coverage()
+
+    def _checkpoint(self, tasks_done: int = 0) -> None:
+        """The state, once every rank's outputs are on disk: a state never
+        claims a task whose images are missing."""
+        self._flush_saves()
+        pdist.barrier()
+        self.save_state(tasks_done=tasks_done)
+
+    def _round_end(self, round_idx: int) -> None:
+        """After a round's last wave: the grid check, the state and, at a
+        domain switch, the condition caches cleared."""
+        self._flush_saves()
+        self._completed_rounds = round_idx + 1
+        self.validate_grid(self._completed_rounds)
+        self._checkpoint()
+        nxt = round_idx + 1
+        if (nxt < len(self.all_tasks) and self.all_tasks[nxt]
+                and self.all_tasks[nxt][0].domain != self.all_tasks[round_idx][0].domain):
+            # the finished domain's rows are not revisited soon
+            self.pipeline.clear_condition_caches()
+
+    def _check_coverage(self) -> None:
+        """Every grid cell saved by some rank (in this run or, for a resumed
+        one, on disk already); then rank 0 counts the files."""
+        cov = np.zeros((len(self.spa_labels), len(self.tem_labels)), bool)
+        for s, t in self._saved_cells:
+            cov[self._spa_index[s], self._tem_index[t]] = True
+        for s, si in self._spa_index.items():
+            d = osp.join(self.output_dir, "images", s)
+            if osp.isdir(d):
+                for f in os.listdir(d):
+                    ti = self._tem_index.get(f[:-4])
+                    if f.endswith(".jpg") and ti is not None:
+                        cov[si, ti] = True
+        cov_all = np.stack(pdist.all_gather_object(cov)).any(axis=0)
+        if not cov_all.all():
+            raise ValueError(
+                f"Sampling failed: {int((~cov_all).sum())} grid cells saved by no process.")
+        if pdist.rank() == 0 and not check_sampling_results(
+                self.spa_labels, self.tem_labels, self.output_dir):
             raise ValueError("Sampling failed: output grid incomplete.")

@@ -12,8 +12,7 @@ Usage::
     with trace_to("results/trace_step"):      # Chrome trace of host and card
         ...
 
-The JAX module's ``RankedLogger`` waits for a caller: a multi-process
-runner (``ROADMAP.md`` A.7).
+    RankedLogger(__name__).info("wave done")   # "[rank3] wave done"
 """
 
 from __future__ import annotations
@@ -90,3 +89,22 @@ def trace_to(log_dir: str):
     prof.export_chrome_trace(path)
     log.info("profiler trace written to %s", path)
 
+
+
+class RankedLogger(logging.LoggerAdapter):
+    """Rank-prefixed logger (the JAX module's, with the rank from
+    ``torch.distributed`` when a process group is up, else 0);
+    ``rank_zero_only`` drops the records of every other rank."""
+
+    def __init__(self, name: str = __name__, rank_zero_only: bool = False):
+        super().__init__(logging.getLogger(name), {})
+        self.rank_zero_only = rank_zero_only
+
+    def log(self, level, msg, *args, **kwargs):
+        if not self.isEnabledFor(level):
+            return
+        dist = torch.distributed
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        if self.rank_zero_only and rank != 0:
+            return
+        super().log(level, f"[rank{rank}] {msg}", *args, **kwargs)

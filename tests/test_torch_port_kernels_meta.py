@@ -134,9 +134,9 @@ def test_chip_smoke_kernel_records():
     from the skewed-pipeline file, B8/B9 from the single-pass file. The
     attention kernels that the table may route sampling shapes to read
     their launches from demo_4d (budgeted, then resumed by the CLI), the
-    main path, then the CLI's production demo_3d, the slice and the
-    checkpoint variants, and last the tuner; B3 and B4 launch on the same
-    sampling paths."""
+    main path, then the CLI's production demo_3d, the slice, the
+    checkpoint variants and the waves phase's wave run, and last the tuner;
+    B3 and B4 launch on the same sampling paths."""
     mod = _chip_smoke()
     meta = mod.KERNEL_META
     assert len(meta) == 9  # ten TPU kernels; B6 and B7 are one fused kernel
@@ -152,7 +152,7 @@ def test_chip_smoke_kernel_records():
         assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_skew_hopper.cu"
     for name in ("flash_fwd_single_pass", "flash_fwd_single_pass_batched"):
         assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_single_hopper.cu"
-    assert mod.PATHS == ("demo4d", "cli", "slice", "variants")
+    assert mod.PATHS == ("demo4d", "cli", "slice", "variants", "waves")
     for name in ("flash_fwd_two_level", "flash_fwd_d64_window", "flash_fwd_d64_frame",
                  "flash_fwd_single_pass", "flash_fwd_single_pass_batched"):
         assert meta[name][-1] == (*mod.PATHS, "tune"), name

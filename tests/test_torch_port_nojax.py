@@ -15,7 +15,8 @@ port's CLI once (``exp=demo_3d`` at ``model.arch=tiny``, ``device=cpu``,
 with the nerfstudio export and the metrics), writes and reloads a
 diffusers checkpoint, imports the attention tuner and routes its hot shapes
 through the committed dispatch table, imports the forward benchmark, the
-port's bench and its two training scripts, and finally checks that no
+port's bench and its two training scripts, the multi-device modules
+(``parallel/``, ``ops/context_parallel.py``, the dry run), and finally checks that no
 module of those packages or of ``diffuman4d_tpu`` was loaded."""
 
 from __future__ import annotations
@@ -193,6 +194,16 @@ SCRIPT = textwrap.dedent("""
     from diffuman4d_torch import bench, train_run_chip, train_step_chip
 
     assert bench.BASELINE_CAM_FRAMES_PER_SEC == 0.55
+    # the multi-device modules: the rank mesh, the process group, context
+    # parallelism and the dry run (its ranks are spawned, each jax-free too)
+    from diffuman4d_torch import dryrun_multichip
+    from diffuman4d_torch.ops import context_parallel
+    from diffuman4d_torch.parallel import cp_unet, distributed, mesh
+
+    assert distributed.initialize("cpu") is False and mesh.make_mesh().size == 1
+    assert cp_unet.cp_comm_budget(UNetConfig(), 16, 128)["expected_all_gathers"] == 22
+    assert context_parallel.cp_attention_grouped.all_gathers == 0
+    assert dryrun_multichip.SCENE["num_cams"] == 6
     assert train_step_chip.parse_args([]).optimizer == "adafactor"
     assert train_run_chip.summarize(tmp_dir_gone) == {"error": "no metrics yet"}
     loaded = sorted(m for m in sys.modules
