@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,variants,kernels  # DPM++ / Euler / FreeU / skeletons
     python3 chip_smoke.py --phases build,bench,train,train_run  # the measurement entry points
     python3 chip_smoke.py --phases build,waves,kernels   # waves and CP over NCCL, CP shapes
+    python3 chip_smoke.py --phases build,train_dp        # dp / tp training over NCCL
 
 Phases:
 
@@ -147,6 +148,28 @@ Phases:
    reference phase's bound), with as many K/V all-gathers as
    ``cp_comm_budget`` counts (22) plus the output's. It prints the wave
    phases, the NCCL version and the card's name and power limit.
+4c. ``train_dp``: data- and tensor-parallel training on one card, in a
+   child process started as ``waves`` starts one (NCCL at world size 1).
+   The full-width UNet in bf16 at the ``train`` phase's shape (one
+   12-frame window at 128^2 latents, remat, attention "train") takes two
+   AdamW steps through ``make_train_step`` on a 1 x 1 mesh over the
+   process group (the masters and moments of every weight that
+   ``shard_params_for_tp`` places held as model-axis slices, the
+   gradients all-reduced over the data group in one buffer, the working
+   copy all-gathered after each update), then the same two steps without
+   a mesh from the same weights: loss, gradient norm, masters and moments
+   must be equal bit for bit. Counters are zeroed just before the mesh
+   steps and read just after: the forward-with-logsumexp kernel, the
+   fused backward and the fused conv must launch. Then ``train(...,
+   mesh=)`` runs two steps and writes a state, a second call resumes it
+   for a third, and a third call runs three steps uninterrupted: the two
+   final states must be equal bit for bit, and the loop's VAE encodes
+   must launch the d = 512 attention and the fused conv. Last, the
+   synthetic scene's visual hull is carved on the card and on the CPU
+   (``preprocess/visual_hull.carve_scene``), and the two PLY files must be
+   equal. It prints the step times with and without the mesh, the time in
+   all-reduces and all-gathers per step, the peak memory, the state's bytes
+   and the launches, beside the card's name and power limit.
 5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
@@ -209,7 +232,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "tune", "bench", "reference", "slice", "cli", "demo4d", "train", "variants",
-          "waves", "kernels")
+          "waves", "train_dp", "kernels")
 EXTRA_PHASES = ("profile", "demo4d_prod", "overlap", "train_run")  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -2483,6 +2506,240 @@ def waves_child(out_json: str) -> int:
     return 0
 
 
+def phase_train_dp(work: Path, smi: str) -> dict:
+    """Data- and tensor-parallel training at world size 1 over NCCL, in a
+    child process started as torchrun starts a rank: see
+    :func:`train_dp_child`."""
+    out_json = work / "train_dp.json"
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-dp-child",
+                           str(out_json)], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall_s = time.perf_counter() - t0
+    (work / "train_dp_child.log").write_text(proc.stdout + proc.stderr)
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"train_dp: child exit code {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(out_json.read_text())
+    res.update(wall_s=wall_s, card=smi,
+               shapes={k: [tuple(x) for x in v] for k, v in res["shapes"].items()})
+    m = res["mesh"]
+    log(f"train_dp ({smi}): child {wall_s:.1f} s; steps on the 1 x 1 mesh {m['step_s']} s, "
+        f"without {res['plain']['step_s']} s; all-reduces {m['all_reduce_s']} s and "
+        f"all-gathers {m['all_gather_s']} s in each step; peak {m['peak_gib']:.2f} GiB (without "
+        f"{res['plain']['peak_gib']:.2f}); state {m['state_bytes']} B; launches "
+        f"{res['launches']} (steps {m['launches']}, loop {res['loop_launches']}); loop "
+        f"{res['loop']['s']} s; hull {res['vhull']}")
+    return res
+
+
+def _state_equal(a, b) -> dict:
+    """Which parts of two train states (or state files' trees) differ:
+    part -> number of tensors not equal bit for bit."""
+    import torch
+
+    def differ(x, y) -> bool:
+        return not torch.equal(x.cpu(), y.cpu())
+
+    out = {"params": sum(differ(a["params"][k], v) for k, v in b["params"].items())}
+    for slot, tree in b["opt_state"].items():
+        if slot != "count":
+            out[slot] = sum(differ(a["opt_state"][slot][k], v) for k, v in tree.items())
+    return out
+
+
+def train_dp_child(out_json: str) -> int:
+    """In a process that torchrun's variables name rank 0 of 1: the process
+    group over NCCL and a 1 x 1 mesh of it. Two AdamW steps of the
+    full-width UNet through the mesh's train step and two without a mesh
+    (bit-equal); the loop under the mesh, interrupted and resumed against
+    uninterrupted (bit-equal); the visual hull on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from diffuman4d_torch.data import SpaTemDataset
+    from diffuman4d_torch.ops import conv, flash_attention as fa, flash_backward as fb
+    from diffuman4d_torch.parallel import distributed as pdist
+    from diffuman4d_torch.parallel.mesh import make_mesh
+    from diffuman4d_torch.preprocess.visual_hull import carve_scene
+    from diffuman4d_torch.sampling.loader import build_models
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training import trainer as pt
+    from diffuman4d_torch.training.data import (
+        WindowBatcher,
+        WindowBatcherConfig,
+        encode_training_batch,
+    )
+    from diffuman4d_torch.training.loop import LoopConfig, train
+
+    work = ROOT / "build" / "smoke"
+    t0 = time.perf_counter()
+    if not pdist.initialize("cuda"):
+        raise AssertionError("train_dp: initialize() saw no RANK / WORLD_SIZE")
+    res = {"init_s": time.perf_counter() - t0, "backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size(),
+           "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+    if res["backend"] != "nccl" or res["world"] != 1:
+        raise AssertionError(f"train_dp: {res}")
+    mesh = make_mesh()
+    comm = {"all_reduce": [], "all_gather": []}
+    originals = {}
+    for name in comm:  # time each collective, the card's queue drained around it
+        originals[name] = fn = getattr(torch.distributed, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            comm[_name].append(time.perf_counter() - t)
+            return out
+
+        setattr(torch.distributed, name, timed)
+
+    unet, vae = build_models(device="cuda", dtype=torch.bfloat16, seed=0)
+    pipe = Diffuman4DPipeline(unet, vae, Scheduler(SchedulerConfig()), image_size=1024,
+                              vae_batch=4, device="cuda")
+    dataset = SpaTemDataset(data_dir=_scene(work), scene_label="scene0", height=1024, width=1024)
+    batcher = WindowBatcher(dataset, WindowBatcherConfig(
+        window_size=TRAIN_L - 4, tem_labels=["000000"],
+        input_spa_labels=["01", "05", "09", "13"]))
+    raw = batcher.make_batch(np.random.default_rng(0), 1, "spatial")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = encode_training_batch(pipe, raw, gen)
+    t_fix, eps = pt.draw_noise(pipe.scheduler, gen, batch["latents_x0"].shape)
+    start = {k: p.detach().clone() for k, p in unet.named_parameters()}
+    wrappers = {"flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd": fb.flash_bwd,
+                "conv3x3": conv.conv3x3, "flash_fwd_d512": fa.KERNELS["flash_d512"]}
+    tcfg = pt.TrainConfig()  # lr 1e-5, remat, AdamW, attention "train"
+
+    def two_steps(on_mesh: bool) -> tuple:
+        pt.sync_module(unet, start)
+        m = mesh if on_mesh else None
+        state = pt.create_train_state(unet, tcfg, m)
+        step = pt.make_train_step(unet, pipe.scheduler, tcfg, "spatial", m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for v in comm.values():
+            v.clear()
+        _reset(wrappers.values())
+        out = {"losses": [], "grad_norms": [], "step_s": [], "all_reduce_s": [],
+               "all_gather_s": []}
+        for _ in range(2):  # the first step's first all-reduce brings up the communicator
+            n = {k: len(v) for k, v in comm.items()}
+            t = time.perf_counter()
+            state, metrics = step(state, batch, t=t_fix, eps=eps)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t)
+            out["losses"].append(metrics["loss"].item())
+            out["grad_norms"].append(metrics["grad_norm"].item())
+            for k in comm:
+                out[f"{k}_s"].append(sum(comm[k][n[k]:]))
+        out.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches={n: f.launches for n, f in wrappers.items()},
+                   shapes={n: sorted(f.shapes) for n, f in wrappers.items()},
+                   collectives={k: len(v) for k, v in comm.items()},
+                   state_bytes=metrics["state_bytes"],
+                   sharded=len(state.layout.dims) if state.layout else 0)
+        return state, out
+
+    mesh_state, res["mesh"] = two_steps(True)
+    log(f"train_dp: mesh {json.dumps({k: v for k, v in res['mesh'].items() if k != 'shapes'})}")
+    # to the host, so that the plain run's peak is its own
+    on_host = {"params": {k: v.cpu() for k, v in mesh_state.params.items()},
+               "opt_state": {slot: v if slot == "count" else {k: x.cpu() for k, x in v.items()}
+                             for slot, v in mesh_state.opt_state.items()}}
+    del mesh_state
+    torch.cuda.empty_cache()
+    plain_state, res["plain"] = two_steps(False)
+    res["steps_differ"] = _state_equal(
+        on_host, {"params": plain_state.params, "opt_state": plain_state.opt_state})
+    res["bit_equal"] = (res["mesh"]["losses"] == res["plain"]["losses"]
+                        and res["mesh"]["grad_norms"] == res["plain"]["grad_norms"]
+                        and not any(res["steps_differ"].values()))
+    del on_host, plain_state
+    torch.cuda.empty_cache()
+    log(f"train_dp: 1 x 1 mesh vs plain, bit-equal {res['bit_equal']} "
+        f"(tensors differing {res['steps_differ']})")
+
+    # the loop under the mesh: 2 steps and a state, resumed for a 3rd, against 3 in one run
+    def loop(out: Path, steps: int, every: int) -> float:
+        pt.sync_module(unet, start)
+        lcfg = LoopConfig(steps=steps, batch_size=1, window_size=TRAIN_L - 4,
+                          checkpoint_every=every, log_every=1, out_dir=str(out), seed=3,
+                          domains=("spatial",))
+        t = time.perf_counter()
+        train(pipe, batcher, lcfg, tcfg, mesh=mesh)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    a, b = work / "train_dp_a", work / "train_dp_b"
+    for d in (a, b):
+        shutil.rmtree(d, ignore_errors=True)
+    _reset(wrappers.values())
+    loop_s = [loop(a, 2, 2), loop(a, 3, 3)]
+    res["loop_launches"] = {n: f.launches for n, f in wrappers.items()}
+    # the path's launches and shapes: the mesh steps and the loop's run and resume
+    res["launches"] = {n: res["mesh"]["launches"][n] + res["loop_launches"][n] for n in wrappers}
+    res["shapes"] = {n: sorted(set(map(tuple, res["mesh"]["shapes"][n])) | set(f.shapes))
+                     for n, f in wrappers.items()}
+    loop_s.append(loop(b, 3, 3))
+    pt.sync_module(unet, start)
+    got = torch.load(a / "state_0000003.pt", map_location="cpu", weights_only=True)
+    want = torch.load(b / "state_0000003.pt", map_location="cpu", weights_only=True)
+    res["loop"] = {"s": loop_s, "resumed_differ": _state_equal(got, want),
+                   "step": [got["step"], want["step"]],
+                   "state_file_gb": (a / "state_0000003.pt").stat().st_size / 1e9,
+                   "losses": [json.loads(x)["loss"] for x in
+                              (a / "metrics.jsonl").read_text().splitlines()]}
+    del got, want
+    for d in (a, b):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+    for name, fn in originals.items():
+        setattr(torch.distributed, name, fn)
+    log(f"train_dp: loop {json.dumps(res['loop'])}, launches {res['loop_launches']}")
+
+    # the synthetic scene's visual hull, on the card and on the CPU
+    scene = Path(_scene(work)) / "scene0"
+    hull = {}
+    for device in ("cuda", "cpu"):
+        out = work / f"vhull_{device}"
+        t = time.perf_counter()
+        paths = carve_scene(str(scene / "fmasks"), str(scene / "transforms.json"), str(out),
+                            voxel_size=0.05, device=device)
+        hull[device] = {"s": time.perf_counter() - t, "ply": Path(paths[0]).read_bytes()}
+    res["vhull"] = {"cuda_s": hull["cuda"]["s"], "cpu_s": hull["cpu"]["s"],
+                    "equal": hull["cuda"]["ply"] == hull["cpu"]["ply"],
+                    "ply_bytes": len(hull["cuda"]["ply"])}
+    Path(out_json).write_text(json.dumps(res))
+    log(f"train_dp: visual hull {res['vhull']}")
+
+    if not res["bit_equal"]:
+        raise AssertionError(f"train_dp: the 1 x 1 mesh step differs from the plain step: "
+                             f"{res['mesh']['losses']} vs {res['plain']['losses']}, "
+                             f"{res['steps_differ']}")
+    m = res["mesh"]
+    if not all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]):
+        raise AssertionError(f"train_dp: non-finite loss or norm {m}")
+    if m["sharded"] < 250 or m["collectives"] != {"all_reduce": 6, "all_gather": 2}:
+        raise AssertionError(f"train_dp: {m['sharded']} sharded, collectives {m['collectives']}")
+    if missing := [k for k in ("flash_fwd_lse", "flash_bwd", "conv3x3") if not m["launches"][k]]:
+        raise AssertionError(f"train_dp: {missing} never launched in the mesh steps")
+    if missing := [k for k in ("flash_fwd_d512", "conv3x3") if not res["loop_launches"][k]]:
+        raise AssertionError(f"train_dp: {missing} never launched in the loop")
+    if any(res["loop"]["resumed_differ"].values()) or res["loop"]["step"] != [3, 3]:
+        raise AssertionError(f"train_dp: resumed loop vs uninterrupted {res['loop']}")
+    if not res["vhull"]["equal"] or res["vhull"]["ply_bytes"] < 400:
+        raise AssertionError(f"train_dp: visual hull {res['vhull']}")
+    return 0
+
+
 def phase_cp_shapes(gen, cache: dict) -> list:
     """Context parallelism's attention shapes (``CP_ATTN64_SHAPES``) on the
     kernel ``route`` gives each, against the plain version, each beside its
@@ -2554,6 +2811,7 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "results" / "chip_smoke.json"),
                     help="where to write the full results as JSON")
     ap.add_argument("--waves-child", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--train-dp-child", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if unknown := set(phases) - set(PHASES + EXTRA_PHASES):
@@ -2570,6 +2828,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.waves_child:  # the waves phase's rank process
         return waves_child(args.waves_child)
+    if args.train_dp_child:  # the train_dp phase's rank process
+        return train_dp_child(args.train_dp_child)
 
     smi = nvidia_smi_line()
     log(smi)
@@ -2636,9 +2896,12 @@ def main() -> int:
         run("train_run", phase_train_run, work, smi)
     if "waves" in phases:
         run("waves", phase_waves, work, smi)
+    if "train_dp" in phases:
+        run("train_dp", phase_train_dp, work, smi)
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
-        for phase in ("tune", "bench", "slice", "cli", "demo4d", "train", "variants", "waves"):
+        for phase in ("tune", "bench", "slice", "cli", "demo4d", "train", "variants", "waves",
+                      "train_dp"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

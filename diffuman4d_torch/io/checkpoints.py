@@ -75,12 +75,24 @@ def _unmap_block_path(parts: list[str]) -> str:
     return ".".join(out)
 
 
+# a flax kernel's axes in torch layout: conv HWIO -> OIHW, dense (in, out) ->
+# (out, in), by the kernel's ndim
+KERNEL_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+
+
+def torch_dim_of_flax_axis(name: str, ndim: int, axis: int) -> int:
+    """The dim of the port's tensor ``name`` (ndim ``ndim``) that holds
+    axis ``axis`` of the flax leaf it was carried from: kernels are
+    transposed (every ``.weight`` of ndim 2 or 4; norm scales are 1-D),
+    other leaves keep their axes."""
+    if name.endswith(".weight") and ndim in KERNEL_TO_TORCH:
+        return KERNEL_TO_TORCH[ndim].index(axis)
+    return axis
+
+
 def _leaf(out: dict, name: str, leaf: str, val: np.ndarray, path: str) -> None:
     if leaf == "kernel":
-        if val.ndim == 4:
-            out[f"{name}.weight"] = np.transpose(val, (3, 2, 0, 1))
-        else:
-            out[f"{name}.weight"] = np.transpose(val, (1, 0))
+        out[f"{name}.weight"] = np.transpose(val, KERNEL_TO_TORCH[4 if val.ndim == 4 else 2])
     elif leaf == "scale":
         out[f"{name}.weight"] = val
     elif leaf == "bias":

@@ -9,9 +9,9 @@ stage over the *generated* images like the reference
 (diffuman4d_to_nerfstudio.py:25,42-51): fmasks + RGBA composites under
 ``images_alpha/{cam}/{frame}.png``, with both transforms files pointing at
 the alpha PNGs. The matting model is pluggable (by default the
-checkpoint-free ChromaKey matting; the JAX package's BiRefNet stage waits
-for ``ROADMAP.md`` A.8); ``matting=False`` skips the stage and references the
-JPEGs directly, recording that in the export manifest.
+checkpoint-free ChromaKey matting; ``preprocess.background.BiRefNetMatting``
+with a local checkpoint); ``matting=False`` skips the stage and references
+the JPEGs directly, recording that in the export manifest.
 """
 
 from __future__ import annotations

@@ -14,8 +14,12 @@ mesh row (``model``) and of its mesh column (``data``).
 Without a process group (a plain one-card run) the mesh is 1 x 1 and its
 collectives are copies. ``task_sharding`` / ``replicated`` have no
 counterpart: every rank holds the whole grid and its own weights.
-``shard_params_for_tp`` belongs to the data- and tensor-parallel training,
-which is not ported yet.
+
+:func:`shard_params_for_tp` is the JAX function's placement rule for the
+model axis of data- and tensor-parallel training: the parameters it names
+are held as ``1/model`` slices (:class:`ShardLayout`) in the train state --
+fp32 masters, optimiser moments and a device EMA -- while the module's
+working copy stays whole on every rank (``ROADMAP.md`` C.21).
 """
 
 from __future__ import annotations
@@ -47,6 +51,19 @@ class Mesh:
     def index(self, axis: str) -> int:
         """This rank's coordinate on ``axis``."""
         return self.coords[axis]
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum ``x`` in place over the ``axis`` ranks that share this rank's
+        other coordinate; returns ``x`` (unchanged where the axis has one
+        rank and no process group)."""
+        group = self._groups.get(axis)
+        if group is None:
+            if self.shape[axis] != 1:
+                raise RuntimeError(f"mesh axis {axis} of {self.shape[axis]} ranks has no "
+                                   "process group")
+            return x
+        dist.all_reduce(x, group=group)
+        return x
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """Every ``axis`` rank's ``x`` (one shape on all of them),
@@ -89,3 +106,66 @@ def make_mesh(data: int | None = None, model: int = 1) -> Mesh:
             if rank in line:
                 groups[axis] = g
     return Mesh(data, model, rank, groups)
+
+
+def shard_params_for_tp(params: dict, mesh: Mesh, min_size: int = 2**16) -> dict:
+    """The placement of the JAX package's tensor-parallel layout
+    (``diffuman4d_tpu/parallel/mesh.py:46``): a tensor with ndim >= 2 and
+    at least ``min_size`` elements is split over ``model`` along the dim
+    that holds the flax kernel's last (output) axis; biases and norms stay
+    whole. ``params`` maps diffusers names to tensors in torch layout;
+    returns name -> the sharded dim, or None. The dim comes from the
+    weight carry's transposes (``io/checkpoints.torch_dim_of_flax_axis``):
+    dim 0 for every ``Linear`` and ``Conv`` weight. A sharded dim that
+    ``model`` does not divide raises (XLA would pad; the port's slices are
+    equal)."""
+    from diffuman4d_torch.io.checkpoints import torch_dim_of_flax_axis
+
+    m = mesh.shape["model"]
+    placement = {}
+    for name, x in params.items():
+        dim = None
+        if x.ndim >= 2 and x.numel() >= min_size:
+            dim = torch_dim_of_flax_axis(name, x.ndim, x.ndim - 1)
+            if x.shape[dim] % m:
+                raise ValueError(f"{name}: dim {dim} of {tuple(x.shape)} does not divide "
+                                 f"over model={m}")
+        placement[name] = dim
+    return placement
+
+
+class ShardLayout:
+    """This rank's slices of the parameters that a placement splits over
+    the mesh's ``model`` axis: rank ``i`` of the axis holds the ``i``-th of
+    ``model`` equal slices along dim 0, in the order of the coordinates.
+    ``shapes`` are the whole tensors' shapes."""
+
+    def __init__(self, placement: dict, shapes: dict, mesh: Mesh):
+        self.mesh = mesh
+        self.model = mesh.shape["model"]
+        self.index = mesh.index("model")
+        self.dims = {k: d for k, d in placement.items() if d is not None}
+        if other := {k: d for k, d in self.dims.items() if d != 0}:
+            # the flat gathers rebuild whole tensors from contiguous slices
+            raise ValueError(f"sharded along a dim other than 0: {other}")
+        self.shapes = {k: tuple(s) for k, s in shapes.items()}
+
+    def sharded(self, name: str) -> bool:
+        return name in self.dims
+
+    def shard(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor ``x`` (a view; ``x`` itself
+        where ``name`` is not sharded)."""
+        if name not in self.dims:
+            return x
+        n = x.shape[0] // self.model
+        return x.narrow(0, self.index * n, n)
+
+    def gather(self, name: str, x: torch.Tensor, device=None) -> torch.Tensor:
+        """The whole tensor from every model rank's slice ``x`` (``x``
+        where ``name`` is not sharded); the collective runs on ``device``
+        (a card for NCCL) and the result returns to ``x``'s device."""
+        if name not in self.dims or self.model == 1:
+            return x
+        whole = self.mesh.all_gather(x.to(device or x.device), "model", dim=0)
+        return whole.to(x.device)

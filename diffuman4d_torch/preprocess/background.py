@@ -2,12 +2,16 @@
 and PIL copy of ``diffuman4d_tpu/preprocess/background.py``, reference:
 scripts/preprocess/remove_background.py).
 
-The matting model is a pluggable stage with the reference's file contract.
-``ChromaKeyMatting`` is the dependency-free matting for synthetic / studio
-data: foreground = pixels far from the dominant border color. The JAX
-package's ``BiRefNetMatting`` (a local BiRefNet checkpoint through
-``transformers``) is not copied yet (``ROADMAP.md`` A.8); any callable
-image -> mask can be passed as ``matting``.
+The matting model is a pluggable stage with the reference's file contract:
+
+* ``BiRefNetMatting`` loads a *local* BiRefNet checkpoint directory through
+  ``transformers`` (no download: point ``model_dir`` at a local copy) and
+  runs on the card unless ``device`` says otherwise (the JAX package's
+  default is the CPU);
+* ``ChromaKeyMatting`` is the dependency-free matting for synthetic /
+  studio data: foreground = pixels far from the dominant border color.
+
+Any callable image -> mask can be passed as ``matting``.
 
 Outputs: fmasks/{cam}/{frame}.png (uint8), optional alpha composites
 images_alpha/{cam}/{frame}.png (RGBA), resumable via skip_exists
@@ -38,6 +42,45 @@ class ChromaKeyMatting:
         bg = np.median(border, axis=0)
         dist = np.linalg.norm(image - bg[None, None], axis=-1)
         return (dist > self.threshold).astype(np.float32)
+
+
+class BiRefNetMatting:
+    """BiRefNet via transformers AutoModelForImageSegmentation (the exact
+    model the reference loads, remove_background.py:15-21). Requires a local
+    checkpoint directory; raises a clear error otherwise."""
+
+    def __init__(self, model_dir: str, image_size: int = 1024, device: str = "cuda"):
+        if not osp.isdir(model_dir):
+            raise FileNotFoundError(
+                f"BiRefNet checkpoint not found at {model_dir}. This environment "
+                "has no network egress; place a local copy there or use "
+                "ChromaKeyMatting."
+            )
+        import torch
+        from transformers import AutoModelForImageSegmentation
+
+        self.torch = torch
+        self.device = device
+        self.image_size = image_size
+        self.model = (
+            AutoModelForImageSegmentation.from_pretrained(model_dir, trust_remote_code=True)
+            .to(device)
+            .eval()
+        )
+
+    def __call__(self, image: np.ndarray) -> np.ndarray:
+        torch = self.torch
+        h, w = image.shape[:2]
+        x = torch.from_numpy(image).permute(2, 0, 1)[None].float()
+        x = torch.nn.functional.interpolate(x, (self.image_size, self.image_size),
+                                            mode="bilinear")
+        mean = torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1)
+        std = torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)
+        x = ((x - mean) / std).to(self.device)
+        with torch.no_grad():
+            pred = self.model(x)[-1].sigmoid()
+        pred = torch.nn.functional.interpolate(pred, (h, w), mode="bilinear")
+        return pred[0, 0].cpu().numpy().astype(np.float32)
 
 
 def remove_background(

@@ -85,20 +85,26 @@ class WindowBatcher:
 
 @torch.no_grad()
 def encode_training_batch(pipeline, raw: dict, generator: torch.Generator | None = None,
-                          noise: torch.Tensor | None = None) -> dict:
+                          noise: torch.Tensor | None = None, rows: slice | None = None) -> dict:
     """Host batch -> device train-step batch: VAE-encode ALL rows' clean
     pixels (targets need x0 latents for the loss; the VAE stays frozen),
     Plücker rays at latent resolution. The VAE posterior noise
-    (B*L, h, w, 4) is drawn from ``generator`` unless given."""
+    (B*L, h, w, 4) is drawn from ``generator`` unless given. With ``rows``
+    (a data row's share, ``trainer.data_rows``) only those windows of the
+    batch are encoded, with their rows of the whole batch's noise."""
     B, L = raw["pixel_values"].shape[:2]
     dev, dtype = pipeline.device, pipeline.dtype
     lat, lc = pipeline.latent_size, pipeline.latent_channels
-    pix = torch.from_numpy(np.ascontiguousarray(
-        raw["pixel_values"].reshape((B * L,) + raw["pixel_values"].shape[2:]), np.float32))
     if noise is None:
         if generator is None:
             raise ValueError("encode_training_batch needs a generator or the posterior noise")
         noise = torch.randn((B * L, lat, lat, lc), generator=generator, device=generator.device)
+    if rows is not None:
+        raw = {k: v[rows] for k, v in raw.items()}
+        noise = noise.reshape((B, L) + tuple(noise.shape[1:]))[rows].flatten(0, 1)
+        B = raw["pixel_values"].shape[0]
+    pix = torch.from_numpy(np.ascontiguousarray(
+        raw["pixel_values"].reshape((B * L,) + raw["pixel_values"].shape[2:]), np.float32))
     z = pipeline.encode_images(pix.to(dev, dtype), noise.to(dev, torch.float32))
     Ks = torch.from_numpy(np.asarray(raw["Ks"], np.float32).reshape(B * L, 3, 3)).to(dev)
     poses = torch.from_numpy(np.asarray(raw["poses"], np.float32).reshape(B * L, 4, 4)).to(dev)

@@ -12,6 +12,11 @@ records an event; ``fold`` waits on that event, so folding before the next
 step is also safe when the step overwrites the parameters in place (the
 train step here does). The host math is the fp32 update of the in-step
 device EMA: ``e <- d*e + (1-d)*p``.
+
+Under a mesh the shadow follows the masters' shards (``ROADMAP.md`` C.22):
+each rank stages and folds its own slices; ``load`` takes whole tensors
+(a checkpoint) and keeps this rank's slices, and ``materialize(whole=True)``
+gathers them over the model group.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ class HostEMA:
     per-step EMA when the parameters drift slowly, at 1/k the transfer cost.
     """
 
-    def __init__(self, params: dict, decay: float, update_every: int = 1):
+    def __init__(self, params: dict, decay: float, update_every: int = 1, layout=None):
         if not 0.0 < decay < 1.0:
             raise ValueError(f"decay must be in (0, 1), got {decay}")
         if update_every < 1:
@@ -36,6 +41,8 @@ class HostEMA:
         self.update_every = int(update_every)
         self.decay = float(decay) ** self.update_every
         self.names = list(params)
+        self.layout = layout  # parallel.mesh.ShardLayout of the sharded params, or None
+        self._device = next(iter(params.values())).device if params else None
         pin = any(p.is_cuda for p in params.values())
         self.shadow = [p.detach().to("cpu", torch.float32, copy=True) for p in params.values()]
         self._buffers = [torch.empty_like(e, pin_memory=pin) for e in self.shadow]
@@ -72,16 +79,24 @@ class HostEMA:
             e.mul_(d).add_(p, alpha=1.0 - d)
         self._staged = False
 
-    def materialize(self) -> dict:
+    def materialize(self, whole: bool = False) -> dict:
         """The shadow as a dict matching the source params (live tensors:
-        callers that keep it across further updates must copy)."""
-        return dict(zip(self.names, self.shadow))
+        callers that keep it across further updates must copy). With
+        ``whole`` and a layout, the sharded entries are gathered over the
+        model group (a collective: every model rank calls it)."""
+        out = dict(zip(self.names, self.shadow))
+        if whole and self.layout is not None:
+            out = {k: self.layout.gather(k, e, self._device) for k, e in out.items()}
+        return out
 
     def load(self, tree: dict) -> None:
-        """Replace the shadow from a restored checkpoint dict."""
+        """Replace the shadow from a restored checkpoint dict of whole
+        tensors (this rank's slices are kept under a layout)."""
         if list(tree) != self.names:
             raise ValueError("restored EMA dict does not match the shadow")
-        self.shadow = [x.detach().to("cpu", torch.float32, copy=True) for x in tree.values()]
+        shard = self.layout.shard if self.layout is not None else (lambda k, x: x)
+        self.shadow = [shard(k, x.detach()).to("cpu", torch.float32, copy=True)
+                       for k, x in tree.items()]
         self._staged = False
 
     @property

@@ -12,6 +12,15 @@ run started in a directory that has ``state_*`` files resumes from the
 newest. Each step seeds its data draw and its noise from ``(seed, step)``,
 so a resumed run repeats an uninterrupted one exactly.
 
+With a ``mesh`` (``parallel/mesh.py``, one process per card) every rank
+makes the same raw global batch and encodes only its data row's windows,
+with their rows of the global posterior noise; the train step shards the
+state over the model axis (``trainer.py``). The checkpoint files hold
+whole tensors: the shards are gathered, rank 0 writes, and every rank
+meets at a barrier before the next step. So a state written on one mesh
+shape resumes on any other, and the single-card loop reads it unchanged
+(``ROADMAP.md`` C.22).
+
 Usage::
 
     python -m diffuman4d_torch.training.loop data_dir=<scene tree> \\
@@ -25,6 +34,7 @@ or ``arch=tiny``. The run is on ``cuda`` unless ``device=cpu`` is given.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -35,13 +45,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from diffuman4d_torch.parallel.distributed import barrier
+from diffuman4d_torch.parallel.mesh import Mesh
 from diffuman4d_torch.training.data import encode_training_batch
 from diffuman4d_torch.training.ema import HostEMA
 from diffuman4d_torch.training.trainer import (
     TrainConfig,
     TrainState,
     create_train_state,
+    data_rows,
+    gather_train_state,
     make_train_step,
+    slot_sharded,
     sync_module,
 )
 
@@ -68,39 +83,45 @@ def _step_generator(seed: int, step: int, stream: int, device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(mixed & 0x7FFFFFFFFFFFFFFF)
 
 
-def train(pipeline, batcher, loop_cfg: LoopConfig, train_cfg: TrainConfig | None = None):
+def train(pipeline, batcher, loop_cfg: LoopConfig, train_cfg: TrainConfig | None = None,
+          mesh: Mesh | None = None, placement: dict | None = None):
     """Run the loop on the pipeline's device. ``pipeline`` provides VAE
     encoding and the UNet module; gradients update the UNet only (the VAE
-    stays frozen, as in SD fine-tuning)."""
+    stays frozen, as in SD fine-tuning). Under ``mesh`` every rank calls
+    it, ``batch_size`` is the global batch, and ``placement`` (by default
+    ``shard_params_for_tp`` at its default ``min_size``) says which
+    parameters the model axis splits."""
     train_cfg = train_cfg or TrainConfig()
     os.makedirs(loop_cfg.out_dir, exist_ok=True)
     metrics_path = osp.join(loop_cfg.out_dir, "metrics.jsonl")
     unet, dev = pipeline.unet, pipeline.device
+    writer = mesh is None or mesh.rank == 0
+    rows = data_rows(mesh, loop_cfg.batch_size) if mesh is not None else None
 
-    steps = {d: make_train_step(unet, pipeline.scheduler, train_cfg, d)
+    steps = {d: make_train_step(unet, pipeline.scheduler, train_cfg, d, mesh)
              for d in loop_cfg.domains}
-    state = create_train_state(unet, train_cfg)
+    state = create_train_state(unet, train_cfg, mesh, placement)
     host_ema = None
     if train_cfg.ema_decay and train_cfg.ema_host:
         host_ema = HostEMA(state.params, train_cfg.ema_decay,
-                           update_every=train_cfg.ema_update_every)
+                           update_every=train_cfg.ema_update_every, layout=state.layout)
 
     # resume: restore the FULL train state from the newest state checkpoint
     latest = _latest_state(loop_cfg.out_dir)
     if latest is not None:
         _restore_state(latest, state, host_ema, dev)
-        sync_module(unet, state.params)
+        sync_module(unet, state.params, state.layout)
         log.info("resumed train state at step %d from %s", state.step, latest)
     start_step = state.step
 
     t0 = time.time()
-    with open(metrics_path, "a") as mf:
+    with open(metrics_path, "a") if writer else contextlib.nullcontext() as mf:
         for step_i in range(start_step, loop_cfg.steps):
             domain = loop_cfg.domains[step_i % len(loop_cfg.domains)]
             rng = np.random.default_rng([loop_cfg.seed, step_i])
             raw = batcher.make_batch(rng, loop_cfg.batch_size, domain)
             batch = encode_training_batch(
-                pipeline, raw, _step_generator(loop_cfg.seed, step_i, 0, dev))
+                pipeline, raw, _step_generator(loop_cfg.seed, step_i, 0, dev), rows=rows)
             if host_ema is not None:
                 # the step overwrites the parameters in place: the copies
                 # staged after the previous step must have landed first
@@ -110,7 +131,7 @@ def train(pipeline, batcher, loop_cfg: LoopConfig, train_cfg: TrainConfig | None
             if host_ema is not None and host_ema.should_update(step_i):
                 host_ema.stage(state.params)
 
-            if step_i % loop_cfg.log_every == 0:
+            if step_i % loop_cfg.log_every == 0 and writer:
                 rec = {
                     "step": int(metrics["step"]),
                     "domain": domain,
@@ -126,17 +147,15 @@ def train(pipeline, batcher, loop_cfg: LoopConfig, train_cfg: TrainConfig | None
                 if host_ema is not None:
                     host_ema.fold()  # include this step's staged params
                 n = state.step
-                # inference-ready weights (EMA when enabled, like SD releases)
-                if host_ema is not None:
-                    infer = host_ema.materialize()
-                elif state.ema_params is not None:
-                    infer = state.ema_params
-                else:
-                    infer = state.params
-                _save(osp.join(loop_cfg.out_dir, f"ckpt_{n:07d}.pt"), {"unet": infer})
-                _save(osp.join(loop_cfg.out_dir, f"state_{n:07d}.pt"),
-                      _state_to_tree(state, host_ema))
-                log.info("checkpoint written at step %d", n)
+                tree = _state_to_tree(state, host_ema)  # whole tensors (a collective)
+                if writer:
+                    # inference-ready weights (EMA when enabled, like SD releases)
+                    infer = tree.get("ema_params", tree["params"])
+                    _save(osp.join(loop_cfg.out_dir, f"ckpt_{n:07d}.pt"), {"unet": infer})
+                    _save(osp.join(loop_cfg.out_dir, f"state_{n:07d}.pt"), tree)
+                    log.info("checkpoint written at step %d", n)
+                del tree
+                barrier()  # no rank reads the directory before rank 0 has written
     if host_ema is not None:
         host_ema.fold()
     return state
@@ -151,11 +170,10 @@ def _save(path: str, tree: dict) -> None:
 
 
 def _state_to_tree(state: TrainState, host_ema: HostEMA | None = None) -> dict:
-    tree = {"params": state.params, "opt_state": state.opt_state, "step": state.step}
+    """The state as whole tensors (a collective under a mesh)."""
+    tree = gather_train_state(state)
     if host_ema is not None:
-        tree["ema_params"] = host_ema.materialize()
-    elif state.ema_params is not None:
-        tree["ema_params"] = state.ema_params
+        tree["ema_params"] = host_ema.materialize(whole=True)
     return tree
 
 
@@ -168,14 +186,20 @@ def _latest_state(out_dir: str):
 
 
 def _restore_state(path: str, state: TrainState, host_ema: HostEMA | None, device) -> None:
-    """Load a state checkpoint into ``state`` (and the host EMA) in place.
-    A checkpoint written before EMA was enabled has no ``ema_params``: the
+    """Load a state checkpoint (whole tensors) into ``state`` (and the host
+    EMA) in place, keeping this rank's slices under the state's layout. A
+    checkpoint written before EMA was enabled has no ``ema_params``: the
     shadow is then seeded from the restored parameters."""
     tree = torch.load(path, map_location=device, weights_only=True)
+    layout = state.layout
+
+    def take(slot: str, name: str, x: torch.Tensor) -> torch.Tensor:
+        return layout.shard(name, x) if slot_sharded(layout, slot, name) else x
+
     if set(tree["params"]) != set(state.params):
         raise KeyError(f"{path}: parameter names do not match the model")
     for k, p in state.params.items():
-        p.copy_(tree["params"][k])
+        p.copy_(take("params", k, tree["params"][k]))
     saved = tree["opt_state"]
     if set(saved) != set(state.opt_state):
         raise KeyError(f"{path}: optimiser state {sorted(saved)}, this run's optimiser keeps "
@@ -186,10 +210,11 @@ def _restore_state(path: str, state: TrainState, host_ema: HostEMA | None, devic
         if set(saved[slot]) != set(tensors):
             raise KeyError(f"{path}: optimiser state {slot!r} holds other parameters")
         for k, m in tensors.items():
-            if saved[slot][k].shape != m.shape:
+            x = take(slot, k, saved[slot][k])
+            if x.shape != m.shape:
                 raise ValueError(f"{path}: {slot}[{k!r}] is {tuple(saved[slot][k].shape)}, "
-                                 f"expected {tuple(m.shape)}")
-            m.copy_(saved[slot][k])
+                                 f"expected this rank's {tuple(m.shape)}")
+            m.copy_(x)
     state.opt_state["count"] = int(saved["count"])
     state.step = int(tree["step"])
     ema = tree.get("ema_params")
@@ -201,7 +226,7 @@ def _restore_state(path: str, state: TrainState, host_ema: HostEMA | None, devic
         host_ema.load({k: ema[k] for k in host_ema.names})
     elif state.ema_params is not None:
         for k, e in state.ema_params.items():
-            e.copy_(ema[k])
+            e.copy_(take("ema", k, ema[k]))
 
 
 def main(argv=None) -> int:

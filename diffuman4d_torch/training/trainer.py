@@ -18,6 +18,25 @@ restates ``optax.chain(clip_by_global_norm, adamw)`` or
 the learning-rate schedule is read at the count before the step, and
 weight decay applies to every parameter. The step updates the state and the
 module in place.
+
+Parallelism (the JAX step under ``pjit`` over a ``("data", "model")`` mesh,
+one process per card here, ``parallel/mesh.py``):
+
+* ``data`` -- each data row trains on its ``B / data`` rows of the global
+  batch; the loss is the global batch's (its denominator counts every
+  row's targets), the gradients are summed over the data group in one
+  flattened all-reduce, and the timesteps and noise are the global draw's
+  rows, so a step does not depend on the mesh's shape.
+* ``model`` -- the parameters that ``shard_params_for_tp`` places are held
+  as ``1/model`` slices in the train state: fp32 masters, AdamW's moments,
+  Adafactor's full second moment and the factored statistic that keeps
+  dim 0, and a device EMA. The module's working copy stays whole on every
+  rank and is rebuilt after each update by an all-gather over the model
+  group; the model ranks of a data row see the same rows, so their
+  gradients are whole and equal, and each updates its slice
+  (``ROADMAP.md`` C.21). Adafactor's statistics over a sharded axis (the
+  row normaliser's mean, the rms of the update and of the parameter) are
+  summed over the model group.
 """
 
 from __future__ import annotations
@@ -29,6 +48,7 @@ import numpy as np
 import torch
 
 from diffuman4d_torch.models.unet import UNetMultiviewCondition
+from diffuman4d_torch.parallel.mesh import Mesh, ShardLayout, shard_params_for_tp
 from diffuman4d_torch.schedulers.diffusion import Scheduler
 
 
@@ -64,15 +84,27 @@ class TrainConfig:
 
 class TrainState:
     """fp32 master parameters, optimiser state, step and optional device
-    EMA, all dicts keyed by the UNet's parameter names."""
+    EMA, all dicts keyed by the UNet's parameter names. Under a mesh,
+    ``layout`` says which of them this rank holds as slices."""
 
-    def __init__(self, params, opt_state, step=0, ema_params=None):
+    def __init__(self, params, opt_state, step=0, ema_params=None,
+                 layout: ShardLayout | None = None):
         self.params = params
         # {"count": int, "mu": {...}, "nu": {...}} (AdamW) or
         # {"count": int, "v_row": {...}, "v_col": {...}, "v": {...}} (Adafactor)
         self.opt_state = opt_state
         self.step = step
         self.ema_params = ema_params
+        self.layout = layout
+
+    def nbytes(self) -> dict:
+        """Bytes this rank holds of masters, optimiser moments and device EMA."""
+        def size(tree):
+            return sum(x.numel() * x.element_size() for x in tree.values())
+
+        moments = sum(size(v) for k, v in self.opt_state.items() if k != "count")
+        return {"masters": size(self.params), "moments": moments,
+                "ema": size(self.ema_params) if self.ema_params is not None else 0}
 
 
 def make_lr_schedule(cfg: TrainConfig):
@@ -130,6 +162,20 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
     return x.square().mean().sqrt()
 
 
+def slot_sharded(layout: ShardLayout | None, slot: str, name: str) -> bool:
+    """Whether optimiser slot ``slot`` of parameter ``name`` is held as a
+    slice along dim 0: AdamW's moments and Adafactor's full second moment
+    where the parameter is; of the factored pair, the statistic that
+    keeps dim 0 (``v_row`` averages over the largest dim d0, ``v_col`` over
+    the second largest d1; the other one is whole on every rank)."""
+    if layout is None or not layout.sharded(name):
+        return False
+    if slot not in ("v_row", "v_col"):
+        return True
+    d1, d0 = factored_dims(layout.shapes[name])
+    return (d0 if slot == "v_row" else d1) != 0
+
+
 class Optimizer:
     """Global-norm clip, then AdamW or Adafactor (the chains of the JAX
     package's ``make_optimizer``), on dicts of fp32 tensors, in place.
@@ -149,26 +195,35 @@ class Optimizer:
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
 
-    def init(self, params: dict) -> dict:
+    def init(self, params: dict, layout: ShardLayout | None = None) -> dict:
+        """Zero state for ``params`` (this rank's slices under ``layout``;
+        Adafactor factors by the whole tensor's shape)."""
         if self.cfg.optimizer == "adamw":
             return {"count": 0,
                     "mu": {k: torch.zeros_like(p) for k, p in params.items()},
                     "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for k, p in params.items():
-            dims = factored_dims(p.shape)
+            shape = layout.shapes[k] if layout is not None else tuple(p.shape)
+            dims = factored_dims(shape)
             if dims is None:
                 state["v"][k] = torch.zeros_like(p)
                 continue
             d1, d0 = dims
-            state["v_row"][k] = p.new_zeros(p.shape[:d0] + p.shape[d0 + 1:])
-            state["v_col"][k] = p.new_zeros(p.shape[:d1] + p.shape[d1 + 1:])
+            for slot, d in (("v_row", d0), ("v_col", d1)):
+                s = list(shape[:d] + shape[d + 1:])
+                if slot_sharded(layout, slot, k):
+                    s[0] //= layout.model
+                state[slot][k] = p.new_zeros(s)
         return state
 
     @torch.no_grad()
-    def update(self, grads: dict, opt_state: dict, params: dict) -> torch.Tensor:
-        """One step on ``params`` and ``opt_state``; ``grads`` (fp32) is
-        consumed. Returns the gradients' global norm before clipping."""
+    def update(self, grads: dict, opt_state: dict, params: dict,
+               layout: ShardLayout | None = None) -> torch.Tensor:
+        """One step on ``params`` and ``opt_state``; ``grads`` (fp32, whole
+        tensors) is consumed. Under ``layout`` the sharded parameters and
+        their state are this rank's slices. Returns the gradients' global
+        norm before clipping."""
         cfg = self.cfg
         g_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
@@ -176,10 +231,11 @@ class Optimizer:
                            cfg.grad_clip / g_norm)
         lr = self.schedule(opt_state["count"])
         count = opt_state["count"] = opt_state["count"] + 1
+        shard = layout.shard if layout is not None else (lambda name, x: x)
         if cfg.optimizer == "adamw":
             c1, c2 = 1.0 - cfg.b1 ** count, 1.0 - cfg.b2 ** count
             for name, p in params.items():
-                g = grads[name] * clip
+                g = shard(name, grads[name]) * clip
                 mu = opt_state["mu"][name].mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
                 nu = opt_state["nu"][name].mul_(cfg.b2).addcmul_(g, g, value=1.0 - cfg.b2)
                 update = (mu / c1) / ((nu / c2).sqrt_() + 1e-8)
@@ -190,46 +246,166 @@ class Optimizer:
         # Adafactor: the second moment decays at 1 - (t + 1)^-0.8, t the count
         # before this step
         decay = 1.0 - count ** -ADAFACTOR_DECAY_EXPONENT
-        for name, p in params.items():
+        split = layout is not None and layout.model > 1
+        local = [k for k in params if not (split and layout.sharded(k))]
+        for name in local:
+            update = self._adafactor_direction(name, grads[name] * clip, opt_state, decay,
+                                               params[name].shape)
+            update.div_(torch.clamp(_rms(update) / ADAFACTOR_CLIP_RMS, min=1.0))
+            self._adafactor_apply(params[name], update, lr, _rms(params[name]))
+        if split:
+            self._adafactor_sharded([k for k in params if layout.sharded(k)], grads, clip,
+                                    opt_state, params, layout, lr, decay)
+        return g_norm
+
+    def _adafactor_direction(self, name: str, g: torch.Tensor, opt_state: dict, decay: float,
+                             shape) -> torch.Tensor:
+        """Fold ``g`` (consumed) into the second moment; returns g scaled
+        by its inverse square root, before the rms clip."""
+        g2 = g.square().add_(ADAFACTOR_EPS)
+        dims = factored_dims(shape)
+        if dims is None:
+            v = opt_state["v"][name].mul_(decay).add_(g2, alpha=1.0 - decay)
+            return g.mul_(v.rsqrt())
+        d1, d0 = dims
+        v_row = opt_state["v_row"][name].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+        v_col = opt_state["v_col"][name].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+        row = (v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt_()
+        return g.mul_(row.unsqueeze(d0)).mul_(v_col.rsqrt().unsqueeze(d1))
+
+    def _adafactor_apply(self, p: torch.Tensor, update: torch.Tensor, lr: float,
+                         p_rms: torch.Tensor) -> None:
+        update.mul_(lr).mul_(torch.clamp(p_rms, min=ADAFACTOR_MIN_PARAM_RMS))
+        if self.cfg.weight_decay:
+            update.add_(p, alpha=self.cfg.weight_decay)
+        p.sub_(update)
+
+    def _adafactor_sharded(self, names: list, grads: dict, clip: torch.Tensor, opt_state: dict,
+                           params: dict, layout: ShardLayout, lr: float, decay: float) -> None:
+        """Adafactor on this rank's slices of the ``names`` parameters, as
+        optax computes it on the whole arrays: the factoring follows the
+        whole shape, the statistics come from the whole gradient, and what
+        spans the sharded dim (the row normaliser where ``v_row`` keeps dim
+        0, the rms of the update and of the parameter) is summed over the
+        model group, in two flattened all-reduces."""
+        sums, p_at, norm_at, pending, at = [], {}, {}, {}, 0  # at: offset in the flat sums
+        for name in names:  # the moments, and the partial sums of the first all-reduce
+            shape, p = layout.shapes[name], params[name]
             g = grads[name] * clip
             g2 = g.square().add_(ADAFACTOR_EPS)
-            dims = factored_dims(p.shape)
+            p_at[name], at = at, at + 1
+            sums.append(p.square().sum().reshape(1))
+            dims = factored_dims(shape)
             if dims is None:
-                v = opt_state["v"][name].mul_(decay).add_(g2, alpha=1.0 - decay)
-                update = g.mul_(v.rsqrt())
+                v = opt_state["v"][name].mul_(decay).add_(layout.shard(name, g2),
+                                                          alpha=1.0 - decay)
+                pending[name] = layout.shard(name, g).mul_(v.rsqrt())
+                continue
+            d1, d0 = dims
+            for slot, d in (("v_row", d0), ("v_col", d1)):
+                new = g2.mean(d)
+                if slot_sharded(layout, slot, name):
+                    new = layout.shard(name, new)
+                opt_state[slot][name].mul_(decay).add_(new, alpha=1.0 - decay)
+            v_row, axis = opt_state["v_row"][name], d1 - 1 if d1 > d0 else d1
+            if slot_sharded(layout, "v_row", name) and axis == 0:
+                # the normaliser averages over the sharded dim
+                part = v_row.sum(0, keepdim=True)
+                norm_at[name], at = (at, part.shape), at + part.numel()
+                sums.append(part.reshape(-1))
+                pending[name] = g
             else:
-                d1, d0 = dims
-                v_row = opt_state["v_row"][name].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
-                v_col = opt_state["v_col"][name].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
-                row = (v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt_()
-                update = g.mul_(row.unsqueeze(d0)).mul_(v_col.rsqrt().unsqueeze(d1))
-            del g2
-            update.div_(torch.clamp(_rms(update) / ADAFACTOR_CLIP_RMS, min=1.0))
-            update.mul_(lr).mul_(torch.clamp(_rms(p), min=ADAFACTOR_MIN_PARAM_RMS))
-            if cfg.weight_decay:
-                update.add_(p, alpha=cfg.weight_decay)
-            p.sub_(update)
-        return g_norm
+                pending[name] = (g, v_row.mean(axis, keepdim=True))
+        sums = layout.mesh.all_reduce(torch.cat(sums), "model")
+        for name in names:  # the directions, and the second all-reduce
+            dims = factored_dims(layout.shapes[name])
+            if dims is None:
+                continue
+            d1, d0 = dims
+            if name in norm_at:
+                i0, shape = norm_at[name]
+                g = pending[name]
+                norm = sums[i0:i0 + math.prod(shape)].reshape(shape) / layout.shapes[name][d1]
+            else:
+                g, norm = pending[name]
+            row = (opt_state["v_row"][name] / norm).rsqrt_()
+            pending[name] = layout.shard(name, g).mul(row.unsqueeze(d0)).mul_(
+                opt_state["v_col"][name].rsqrt().unsqueeze(d1))
+        upd_sq = layout.mesh.all_reduce(
+            torch.stack([pending[name].square().sum() for name in names]), "model")
+        for i, name in enumerate(names):
+            numel = math.prod(layout.shapes[name])
+            update = pending.pop(name)
+            update.div_(torch.clamp((upd_sq[i] / numel).sqrt() / ADAFACTOR_CLIP_RMS, min=1.0))
+            self._adafactor_apply(params[name], update, lr, (sums[p_at[name]] / numel).sqrt())
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(cfg)
 
 
-def create_train_state(unet: UNetMultiviewCondition, cfg: TrainConfig) -> TrainState:
+def create_train_state(unet: UNetMultiviewCondition, cfg: TrainConfig, mesh: Mesh | None = None,
+                       placement: dict | None = None) -> TrainState:
     """fp32 masters copied from the module's parameters, zero moments, and
-    a device EMA shadow when ``ema_decay`` is set and ``ema_host`` is not."""
-    params = {k: p.detach().float().clone() for k, p in unet.named_parameters()}
+    a device EMA shadow when ``ema_decay`` is set and ``ema_host`` is not.
+    Under ``mesh`` the parameters of ``placement`` (by default
+    ``shard_params_for_tp`` at its default ``min_size``) are held as this
+    rank's ``1/model`` slices, with their moments and shadow."""
+    named = dict(unet.named_parameters())
+    layout = None
+    if mesh is not None:
+        if placement is None:
+            placement = shard_params_for_tp(named, mesh)
+        layout = ShardLayout(placement, {k: p.shape for k, p in named.items()}, mesh)
+    params = {k: (layout.shard(k, p.detach().float()) if layout else p.detach().float()).clone()
+              for k, p in named.items()}
     ema = ({k: p.clone() for k, p in params.items()}
            if cfg.ema_decay and not cfg.ema_host else None)
-    return TrainState(params, make_optimizer(cfg).init(params), 0, ema)
+    return TrainState(params, make_optimizer(cfg).init(params, layout), 0, ema, layout)
 
 
-def sync_module(unet: UNetMultiviewCondition, params: dict) -> None:
-    """Refresh the module's working copy from the fp32 masters."""
+def gather_train_state(state: TrainState) -> dict:
+    """``{"params", "opt_state", "step"[, "ema_params"]}`` in whole tensors:
+    under a layout the slices are all-gathered over the model group (every
+    model rank calls it); without one, the state's own tensors."""
+    layout = state.layout
+
+    def whole(slot: str, tree: dict) -> dict:
+        return {k: layout.gather(k, x) if slot_sharded(layout, slot, k) else x
+                for k, x in tree.items()}
+
+    tree = {"params": whole("params", state.params),
+            "opt_state": {slot: v if slot == "count" else whole(slot, v)
+                          for slot, v in state.opt_state.items()},
+            "step": state.step}
+    if state.ema_params is not None:
+        tree["ema_params"] = whole("ema", state.ema_params)
+    return tree
+
+
+def sync_module(unet: UNetMultiviewCondition, params: dict,
+                layout: ShardLayout | None = None) -> None:
+    """Refresh the module's working copy from the fp32 masters. Under
+    ``layout`` the sharded masters are this rank's slices: they are cast to
+    the module's dtype and all-gathered over the model group in one
+    flattened buffer."""
     with torch.no_grad():
-        for k, p in unet.named_parameters():
-            p.copy_(params[k])
+        named = dict(unet.named_parameters())
+        sharded = [k for k in named if layout is not None and layout.sharded(k)]
+        for k, p in named.items():
+            if k not in sharded:
+                p.copy_(params[k])
+        if not sharded:
+            return
+        dtype = next(iter(named.values())).dtype
+        flat = torch.cat([params[k].reshape(-1).to(dtype) for k in sharded])
+        whole = layout.mesh.all_gather(flat, "model", dim=0).view(layout.model, -1)
+        off = 0
+        for k in sharded:
+            n = params[k].numel()
+            # rank i's slice is rows i of dim 0: the rows in order are the whole
+            named[k].copy_(whole[:, off:off + n].reshape(named[k].shape))
+            off += n
 
 
 def diffusion_loss(
@@ -241,6 +417,7 @@ def diffusion_loss(
     generator: torch.Generator | None = None,
     t: torch.Tensor | None = None,
     eps: torch.Tensor | None = None,
+    weight_sum: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One forward + loss on a batch of windows, through the module's
     current parameters.
@@ -251,7 +428,9 @@ def diffusion_loss(
       skeletons      (B, L, H, W, 3)  full-res (pose-encoder path)
       is_cond        (B, L) bool
     The timesteps ``t`` (B,) and the noise ``eps`` (like ``latents_x0``,
-    fp32) are drawn from ``generator`` unless given.
+    fp32) are drawn from ``generator`` unless given. ``weight_sum``, the
+    count of target rows the loss averages over, defaults to this batch's
+    (a data row's share of a global batch passes the global count).
     """
     x0 = batch["latents_x0"].float()
     B, L, h, w, c = x0.shape
@@ -260,9 +439,7 @@ def diffusion_loss(
     if t is None or eps is None:
         if generator is None:
             raise ValueError("diffusion_loss needs a generator, or t and eps")
-        t = torch.randint(0, scheduler.config.num_train_timesteps, (B,), generator=generator,
-                          device=generator.device)
-        eps = torch.randn(x0.shape, generator=generator, device=generator.device)
+        t, eps = draw_noise(scheduler, generator, x0.shape)
     t_frames = t.to(dev).long().repeat_interleave(L)  # (B*L,)
     t_frames = torch.where(cond_flat, torch.zeros_like(t_frames), t_frames)
 
@@ -296,41 +473,95 @@ def diffusion_loss(
 
     weight = (~cond_flat).float()[:, None, None, None]  # target rows only
     se = (pred - target) ** 2 * weight
-    return se.sum() / (weight.sum() * h * w * c)
+    if weight_sum is None:
+        weight_sum = weight.sum()
+    return se.sum() / (weight_sum * h * w * c)
+
+
+def draw_noise(scheduler: Scheduler, generator: torch.Generator, shape) -> tuple:
+    """The timesteps (B,) and the noise ``shape`` = (B, L, h, w, c) that
+    ``diffusion_loss`` draws from ``generator``."""
+    t = torch.randint(0, scheduler.config.num_train_timesteps, tuple(shape[:1]),
+                      generator=generator, device=generator.device)
+    return t, torch.randn(tuple(shape), generator=generator, device=generator.device)
+
+
+def data_rows(mesh: Mesh | None, batch_size: int) -> slice:
+    """The rows of a global batch of ``batch_size`` that this rank's data
+    row trains on: its ``batch_size / data`` consecutive rows."""
+    if mesh is None:
+        return slice(0, batch_size)
+    data = mesh.shape["data"]
+    if batch_size % data:
+        raise ValueError(f"batch of {batch_size} does not divide over data={data}")
+    n = batch_size // data
+    return slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
 
 
 def make_train_step(unet: UNetMultiviewCondition, scheduler: Scheduler, cfg: TrainConfig,
-                    domain: str = "spatial"):
+                    domain: str = "spatial", mesh: Mesh | None = None):
     """Returns ``train_step(state, batch, generator=None, t=None, eps=None)
     -> (state, metrics)``. ``state`` and the module's working copy are
     updated in place; ``metrics`` holds device scalars (``loss``,
-    ``grad_norm``), the new ``step`` and the names of parameters the loss
-    did not reach (``params_without_grad``; they are stepped with zeros)."""
+    ``grad_norm``), the new ``step``, the names of parameters the loss
+    did not reach (``params_without_grad``; they are stepped with zeros)
+    and the bytes of the state on this rank (``state_bytes``).
+
+    Under ``mesh`` (with a state made on it), ``batch`` is this rank's data
+    row of the global batch (``data_rows``), while ``t`` / ``eps`` -- or the
+    draw from ``generator`` -- are the global batch's, of which the step
+    takes its rows; ``loss`` is the global batch's."""
     opt = make_optimizer(cfg)
 
     def train_step(state: TrainState, batch: dict, generator=None, t=None, eps=None):
         params = dict(unet.named_parameters())
         for p in params.values():
             p.grad = None
+        b = batch["latents_x0"].shape[0]
+        n_data = mesh.shape["data"] if mesh is not None else 1
+        if t is None or eps is None:
+            if generator is None:
+                raise ValueError("the train step needs a generator, or t and eps")
+            t, eps = draw_noise(scheduler, generator,
+                                (b * n_data,) + tuple(batch["latents_x0"].shape[1:]))
+        if t.shape[0] != b * n_data or eps.shape[0] != b * n_data:
+            raise ValueError(f"t / eps of {t.shape[0]} / {eps.shape[0]} rows for {n_data} data "
+                             f"rows of {b}")
+        weight_sum = None
+        if mesh is not None:
+            rows = data_rows(mesh, b * n_data)
+            t, eps = t[rows], eps[rows]
+            weight_sum = mesh.all_reduce((~batch["is_cond"]).sum().float(), "data")
         with unet.configured(attn_implementation=cfg.attn_implementation):
-            loss = diffusion_loss(unet, scheduler, cfg, batch, domain, generator, t, eps)
+            loss = diffusion_loss(unet, scheduler, cfg, batch, domain, t=t, eps=eps,
+                                  weight_sum=weight_sum)
             loss.backward()
-        grads, off_graph = {}, []
-        for k, p in params.items():  # fp32 gradients; a parameter off the graph gets zeros
+        # fp32 gradients in one flat buffer (a parameter off the graph gets
+        # zeros), summed over the data group in one all-reduce
+        numels = [p.numel() for p in params.values()]
+        flat = torch.zeros(sum(numels), dtype=torch.float32, device=loss.device)
+        off_graph = []
+        for (k, p), view in zip(params.items(), flat.split(numels)):
             if p.grad is None:
                 off_graph.append(k)
-            grads[k] = torch.zeros_like(state.params[k]) if p.grad is None else p.grad.float()
+            else:
+                view.copy_(p.grad.reshape(-1))
             p.grad = None
-        g_norm = opt.update(grads, state.opt_state, state.params)
-        del grads
-        sync_module(unet, state.params)
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.all_reduce(flat, "data")
+            mesh.all_reduce(loss, "data")
+        grads = {k: v.view(p.shape) for (k, p), v in zip(params.items(), flat.split(numels))}
+        g_norm = opt.update(grads, state.opt_state, state.params, state.layout)
+        del grads, flat
+        sync_module(unet, state.params, state.layout)
         if state.ema_params is not None:
             d = cfg.ema_decay
             with torch.no_grad():
                 for k, e in state.ema_params.items():
                     e.mul_(d).add_(state.params[k], alpha=1.0 - d)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": g_norm, "step": state.step,
-                       "params_without_grad": off_graph}
+        return state, {"loss": loss, "grad_norm": g_norm, "step": state.step,
+                       "params_without_grad": off_graph, "state_bytes": state.nbytes()}
 
     return train_step

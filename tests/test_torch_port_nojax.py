@@ -16,8 +16,10 @@ with the nerfstudio export and the metrics), writes and reloads a
 diffusers checkpoint, imports the attention tuner and routes its hot shapes
 through the committed dispatch table, imports the forward benchmark, the
 port's bench and its two training scripts, the multi-device modules
-(``parallel/``, ``ops/context_parallel.py``, the dry run), and finally checks that no
-module of those packages or of ``diffuman4d_tpu`` was loaded."""
+(``parallel/``, ``ops/context_parallel.py``, the dry run), the tensor-parallel
+placement, the preprocessing stages (a visual hull carved on the CPU), and
+finally checks that no module of those packages or of ``diffuman4d_tpu``
+was loaded."""
 
 from __future__ import annotations
 
@@ -206,6 +208,20 @@ SCRIPT = textwrap.dedent("""
     assert dryrun_multichip.SCENE["num_cams"] == 6
     assert train_step_chip.parse_args([]).optimizer == "adafactor"
     assert train_run_chip.summarize(tmp_dir_gone) == {"error": "no metrics yet"}
+    # data- and tensor-parallel training: the placement on a model axis of 2
+    assert set(mesh.shard_params_for_tp(dict(unet.named_parameters()), mesh.Mesh(1, 2),
+                                        min_size=2**10).values()) == {None, 0}
+    # the preprocessing stages: the modules, and a hull carved on the CPU
+    from diffuman4d_torch.preprocess import (  # noqa: F401
+        background, dna_extract, download, draw_skeleton, keypoints, pipeline, skeleton_data,
+        triangulate, visual_hull)
+
+    yy, xx = np.mgrid[0:32, 0:32]
+    P = np.array([[[40.0, 0, 16, 0], [0, 40, 16, 0], [0, 0, 1, 3]]], np.float32)
+    hull = visual_hull.carve_visual_hull(((xx - 16) ** 2 + (yy - 16) ** 2 < 64)[None], P,
+                                         bounds=(-1, 1, -1, 1, -1, 1), voxel_size=0.1,
+                                         device="cpu")
+    assert len(hull) > 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
                                            "safetensors", "diffuman4d_tpu")

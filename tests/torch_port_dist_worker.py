@@ -1,5 +1,5 @@
 """Rank functions of the port's multi-process tests
-(``tests/test_torch_port_{distributed,cp,waves,dryrun}.py``).
+(``tests/test_torch_port_{distributed,cp,waves,dryrun}.py`` and ``test_torch_port_dp_*.py``).
 
 Each runs in a process that ``diffuman4d_torch.parallel.distributed
 .spawn_cpu_ranks`` spawned as one rank of a gloo group on the CPU, and
@@ -158,6 +158,147 @@ def cp_unet(rank: int, world: int, cfg_kw: dict, state: dict, x, t, tem, pf,
         out = fn(*(torch.from_numpy(a) for a in (x, t, tem)), num_frames,
                  pose_features=None if pf is None else torch.from_numpy(pf))
     return {"out": out.numpy(), "all_gathers": cpa.cp_attention_grouped.all_gathers}
+
+
+def train_steps(rank: int, world: int, data: int, model: int, cfg_kw: dict, state: dict,
+                tcfg_kw: dict, domain: str, batches: list, draws: list,
+                min_size: int = 2**16) -> dict:
+    """Train steps of the UNet ``cfg_kw`` (fp32, weights ``state``) on a
+    (data, model) mesh: each global batch's data row through the mesh's
+    ``make_train_step``, with the global draws ``(t, eps)``. Returns the
+    metrics, the placement, this rank's shapes of every state tensor, the
+    state gathered to whole tensors (rank 0 only) and whether the module's
+    working copy equals the whole masters."""
+    from diffuman4d_torch.models.unet import UNetConfig, UNetMultiviewCondition
+    from diffuman4d_torch.parallel.mesh import make_mesh, shard_params_for_tp
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training import trainer as pt
+
+    unet = UNetMultiviewCondition(UNetConfig(**cfg_kw)).float()
+    unet.load_state_dict({n: torch.from_numpy(a) for n, a in state.items()})
+    mesh = make_mesh(data=data, model=model)
+    placement = shard_params_for_tp(dict(unet.named_parameters()), mesh, min_size)
+    tcfg = pt.TrainConfig(**tcfg_kw)
+    st = pt.create_train_state(unet, tcfg, mesh, placement)
+    step = pt.make_train_step(unet, Scheduler(SchedulerConfig()), tcfg, domain, mesh)
+    metrics = []
+    for batch, (t, eps) in zip(batches, draws):
+        rows = pt.data_rows(mesh, t.shape[0])
+        local = {k: torch.from_numpy(np.ascontiguousarray(v[rows])) for k, v in batch.items()}
+        st, m = step(st, local, t=torch.from_numpy(t), eps=torch.from_numpy(eps))
+        metrics.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                        "step": m["step"], "state_bytes": m["state_bytes"]})
+    whole = pt.gather_train_state(st)
+    to_np = lambda tree: {k: v.detach().numpy().copy() for k, v in tree.items()}  # noqa: E731
+    shapes = {"params": {k: tuple(p.shape) for k, p in st.params.items()},
+              **{slot: {k: tuple(x.shape) for k, x in v.items()}
+                 for slot, v in st.opt_state.items() if slot != "count"}}
+    out = {"metrics": metrics, "placement": placement, "shapes": shapes,
+           "module_is_masters": all(torch.equal(p, whole["params"][k])
+                                    for k, p in unet.named_parameters())}
+    if rank == 0:
+        out["state"] = {"params": to_np(whole["params"]), "count": whole["opt_state"]["count"],
+                        **{slot: to_np(v) for slot, v in whole["opt_state"].items()
+                           if slot != "count"}}
+        if "ema_params" in whole:
+            out["state"]["ema"] = to_np(whole["ema_params"])
+    return out
+
+
+def optimizer_shards(rank: int, world: int, model: int, params: dict, grads: list,
+                     tcfg_kw: dict) -> dict:
+    """The port's ``Optimizer`` on this rank's slices of ``params`` (every
+    2-D+ entry placed on ``model`` at min_size 1) for the whole gradients
+    ``grads`` of each step; returns the whole parameters and state after
+    the steps, this rank's shapes and its factored dims."""
+    from diffuman4d_torch.parallel.mesh import ShardLayout, make_mesh, shard_params_for_tp
+    from diffuman4d_torch.training import trainer as pt
+
+    mesh = make_mesh(data=world // model, model=model)
+    whole = {k: torch.from_numpy(v) for k, v in params.items()}
+    placement = shard_params_for_tp(whole, mesh, min_size=1)
+    layout = ShardLayout(placement, {k: v.shape for k, v in whole.items()}, mesh)
+    mine = {k: layout.shard(k, v).clone() for k, v in whole.items()}
+    opt = pt.make_optimizer(pt.TrainConfig(**tcfg_kw))
+    opt_state = opt.init(mine, layout)
+    for g in grads:
+        opt.update({k: torch.from_numpy(v) for k, v in g.items()}, opt_state, mine, layout)
+    st = pt.TrainState(mine, opt_state, len(grads), None, layout)
+    gathered = pt.gather_train_state(st)
+    return {"params": {k: v.numpy().copy() for k, v in gathered["params"].items()},
+            "opt_state": {slot: {k: v.numpy().copy() for k, v in tree.items()}
+                          for slot, tree in gathered["opt_state"].items() if slot != "count"},
+            "shapes": {"params": {k: tuple(v.shape) for k, v in mine.items()},
+                       **{slot: {k: tuple(v.shape) for k, v in tree.items()}
+                          for slot, tree in opt_state.items() if slot != "count"}},
+            "factored": {k: pt.factored_dims(layout.shapes[k]) for k in mine}}
+
+
+# the loop tests' model: two stages, the inner one with 3D attention, at
+# toy widths (tests/test_torch_port_training.py's loop setup)
+SMALL_UNET = dict(in_channels=11, block_out_channels=(8, 16), num_attention_heads=(1, 2),
+                  layers_per_block=1, norm_num_groups=4, num_3d_attn_blocks=1)
+
+
+def small_models():
+    """The loop tests' (unet, vae): random fp32 weights from seed 0, the
+    UNet's perturbed (0.2 x normal noise from seed 1 on every tensor) so
+    that no zero-initialised head starts at zero."""
+    from diffuman4d_torch.models.unet import UNetConfig
+    from diffuman4d_torch.models.vae import VAEConfig
+    from diffuman4d_torch.sampling.loader import build_models
+
+    unet, vae = build_models(UNetConfig(**SMALL_UNET), VAEConfig(**TINY_VAE), device="cpu",
+                             dtype=torch.float32, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.2)
+    return unet, vae
+
+
+def loop_setup(scene: str):
+    """(pipeline, batcher) of the loop tests: random fp32 weights from seed
+    0 (the same in every process), the 64^2 scene, window 2."""
+    from diffuman4d_torch.data import SpaTemDataset
+    from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
+    from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
+    from diffuman4d_torch.training.data import WindowBatcher, WindowBatcherConfig
+
+    unet, vae = small_models()
+    pipe = Diffuman4DPipeline(unet, vae, Scheduler(SchedulerConfig()), image_size=64,
+                              device="cpu")
+    dataset = SpaTemDataset(data_dir=scene, scene_label="scene0", height=64, width=64)
+    batcher = WindowBatcher(dataset, WindowBatcherConfig(
+        window_size=2, tem_labels=["000000", "000001"], input_spa_labels=["00", "03"]))
+    return pipe, batcher
+
+
+def loop_run(rank: int, world: int, data: int | None, model: int, scene: str, out: str,
+             steps: int, tcfg_kw: dict, min_size: int = 2**8) -> list:
+    """``training.loop.train`` to ``steps`` in ``out`` (global batch 2,
+    checkpoints every 2 steps) on a (data, model) mesh, or without one when
+    ``data`` is None; returns the metrics rank 0 logged."""
+    import json
+    import os.path as osp
+
+    from diffuman4d_torch.parallel.mesh import make_mesh, shard_params_for_tp
+    from diffuman4d_torch.training.loop import LoopConfig, train
+    from diffuman4d_torch.training.trainer import TrainConfig
+
+    pipe, batcher = loop_setup(scene)
+    mesh = placement = None
+    if data is not None:
+        mesh = make_mesh(data=data, model=model)
+        placement = shard_params_for_tp(dict(pipe.unet.named_parameters()), mesh, min_size)
+    lcfg = LoopConfig(steps=steps, batch_size=2, window_size=2, checkpoint_every=2, log_every=1,
+                      out_dir=out, seed=5)
+    train(pipe, batcher, lcfg, TrainConfig(**tcfg_kw), mesh=mesh, placement=placement)
+    path = osp.join(out, "metrics.jsonl")
+    if rank != 0 or not osp.isfile(path):
+        return []
+    with open(path) as f:
+        return [json.loads(x) for x in f.read().splitlines()]
 
 
 def scene_dir(root: Path) -> str:
