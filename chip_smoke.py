@@ -161,9 +161,9 @@ Phases:
    must be equal bit for bit. Counters are zeroed just before the mesh
    steps and read just after: the forward-with-logsumexp kernel, the
    fused backward and the fused conv must launch. Then ``train(...,
-   mesh=)`` runs two steps and writes a state, a second call resumes it
-   for a third, and a third call runs three steps uninterrupted: the two
-   final states must be equal bit for bit, and the loop's VAE encodes
+   mesh=)`` runs three steps with a state at step 2, and a second call
+   resumes that state in another directory for the third: the two final
+   states must be equal bit for bit, and the loop's VAE encodes
    must launch the d = 512 attention and the fused conv. Last, the
    synthetic scene's visual hull is carved on the card and on the CPU
    (``preprocess/visual_hull.carve_scene``), and the two PLY files must be
@@ -2528,7 +2528,9 @@ def phase_train_dp(work: Path, smi: str) -> dict:
     res.update(wall_s=wall_s, card=smi,
                shapes={k: [tuple(x) for x in v] for k, v in res["shapes"].items()})
     m = res["mesh"]
-    log(f"train_dp ({smi}): child {wall_s:.1f} s; steps on the 1 x 1 mesh {m['step_s']} s, "
+    log(f"train_dp ({smi}): child {wall_s:.1f} s (set-up {res['setup_s']:.1f} s, the steps with "
+        f"and without the mesh and their comparison {res['steps_and_compare_s']:.1f} s); "
+        f"steps on the 1 x 1 mesh {m['step_s']} s, "
         f"without {res['plain']['step_s']} s; all-reduces {m['all_reduce_s']} s and "
         f"all-gathers {m['all_gather_s']} s in each step; peak {m['peak_gib']:.2f} GiB (without "
         f"{res['plain']['peak_gib']:.2f}); state {m['state_bytes']} B; launches "
@@ -2543,7 +2545,7 @@ def _state_equal(a, b) -> dict:
     import torch
 
     def differ(x, y) -> bool:
-        return not torch.equal(x.cpu(), y.cpu())
+        return not torch.equal(x, y.to(x.device))
 
     out = {"params": sum(differ(a["params"][k], v) for k, v in b["params"].items())}
     for slot, tree in b["opt_state"].items():
@@ -2613,6 +2615,8 @@ def train_dp_child(out_json: str) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = encode_training_batch(pipe, raw, gen)
     t_fix, eps = pt.draw_noise(pipe.scheduler, gen, batch["latents_x0"].shape)
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0  # the group, the models and one encoded batch
     start = {k: p.detach().clone() for k, p in unet.named_parameters()}
     wrappers = {"flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd": fb.flash_bwd,
                 "conv3x3": conv.conv3x3, "flash_fwd_d512": fa.KERNELS["flash_d512"]}
@@ -2659,6 +2663,7 @@ def train_dp_child(out_json: str) -> int:
     plain_state, res["plain"] = two_steps(False)
     res["steps_differ"] = _state_equal(
         on_host, {"params": plain_state.params, "opt_state": plain_state.opt_state})
+    res["steps_and_compare_s"] = time.perf_counter() - t0 - res["setup_s"]
     res["bit_equal"] = (res["mesh"]["losses"] == res["plain"]["losses"]
                         and res["mesh"]["grad_norms"] == res["plain"]["grad_norms"]
                         and not any(res["steps_differ"].values()))
@@ -2667,36 +2672,41 @@ def train_dp_child(out_json: str) -> int:
     log(f"train_dp: 1 x 1 mesh vs plain, bit-equal {res['bit_equal']} "
         f"(tensors differing {res['steps_differ']})")
 
-    # the loop under the mesh: 2 steps and a state, resumed for a 3rd, against 3 in one run
-    def loop(out: Path, steps: int, every: int) -> float:
+    # the loop under the mesh: 3 steps in one run with a state at step 2 (the loop also
+    # writes one at its last step, as the JAX loop does), and that state resumed in a
+    # second directory for the 3rd step; the two runs' states are compared as they return
+    def loop(out: Path) -> tuple:
         pt.sync_module(unet, start)
-        lcfg = LoopConfig(steps=steps, batch_size=1, window_size=TRAIN_L - 4,
-                          checkpoint_every=every, log_every=1, out_dir=str(out), seed=3,
-                          domains=("spatial",))
+        lcfg = LoopConfig(steps=3, batch_size=1, window_size=TRAIN_L - 4, checkpoint_every=2,
+                          log_every=1, out_dir=str(out), seed=3, domains=("spatial",))
         t = time.perf_counter()
-        train(pipe, batcher, lcfg, tcfg, mesh=mesh)
+        state = train(pipe, batcher, lcfg, tcfg, mesh=mesh)
         torch.cuda.synchronize()
-        return time.perf_counter() - t
+        return time.perf_counter() - t, state
 
     a, b = work / "train_dp_a", work / "train_dp_b"
     for d in (a, b):
         shutil.rmtree(d, ignore_errors=True)
     _reset(wrappers.values())
-    loop_s = [loop(a, 2, 2), loop(a, 3, 3)]
+    s_a, want = loop(a)
+    b.mkdir(parents=True)
+    os.link(a / "state_0000002.pt", b / "state_0000002.pt")
+    s_b, got = loop(b)
     res["loop_launches"] = {n: f.launches for n, f in wrappers.items()}
     # the path's launches and shapes: the mesh steps and the loop's run and resume
     res["launches"] = {n: res["mesh"]["launches"][n] + res["loop_launches"][n] for n in wrappers}
     res["shapes"] = {n: sorted(set(map(tuple, res["mesh"]["shapes"][n])) | set(f.shapes))
                      for n, f in wrappers.items()}
-    loop_s.append(loop(b, 3, 3))
     pt.sync_module(unet, start)
-    got = torch.load(a / "state_0000003.pt", map_location="cpu", weights_only=True)
-    want = torch.load(b / "state_0000003.pt", map_location="cpu", weights_only=True)
-    res["loop"] = {"s": loop_s, "resumed_differ": _state_equal(got, want),
-                   "step": [got["step"], want["step"]],
+    res["loop"] = {"s": [s_a, s_b],
+                   "resumed_differ": _state_equal(pt.gather_train_state(got),
+                                                  pt.gather_train_state(want)),
+                   "step": [got.step, want.step],
                    "state_file_gb": (a / "state_0000003.pt").stat().st_size / 1e9,
                    "losses": [json.loads(x)["loss"] for x in
-                              (a / "metrics.jsonl").read_text().splitlines()]}
+                              (a / "metrics.jsonl").read_text().splitlines()],
+                   "resumed_losses": [json.loads(x)["loss"] for x in
+                                      (b / "metrics.jsonl").read_text().splitlines()]}
     del got, want
     for d in (a, b):
         shutil.rmtree(d, ignore_errors=True)
@@ -2733,7 +2743,8 @@ def train_dp_child(out_json: str) -> int:
         raise AssertionError(f"train_dp: {missing} never launched in the mesh steps")
     if missing := [k for k in ("flash_fwd_d512", "conv3x3") if not res["loop_launches"][k]]:
         raise AssertionError(f"train_dp: {missing} never launched in the loop")
-    if any(res["loop"]["resumed_differ"].values()) or res["loop"]["step"] != [3, 3]:
+    if (any(res["loop"]["resumed_differ"].values()) or res["loop"]["step"] != [3, 3]
+            or res["loop"]["resumed_losses"] != res["loop"]["losses"][2:]):
         raise AssertionError(f"train_dp: resumed loop vs uninterrupted {res['loop']}")
     if not res["vhull"]["equal"] or res["vhull"]["ply_bytes"] < 400:
         raise AssertionError(f"train_dp: visual hull {res['vhull']}")

@@ -75,7 +75,7 @@ def _train_step(rank: int, world: int) -> str:
 
     from diffuman4d_torch.models.unet import UNetConfig
     from diffuman4d_torch.models.vae import VAEConfig
-    from diffuman4d_torch.parallel.mesh import make_mesh, shard_params_for_tp
+    from diffuman4d_torch.parallel.mesh import make_mesh
     from diffuman4d_torch.sampling.loader import build_models
     from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
     from diffuman4d_torch.training.trainer import (
@@ -90,9 +90,8 @@ def _train_step(rank: int, world: int) -> str:
                      layers_per_block=1, norm_num_groups=4, num_3d_attn_blocks=1)
     unet, _ = build_models(cfg, VAEConfig(block_out_channels=(4, 4, 8, 8), layers_per_block=1),
                            device="cpu", dtype=torch.float32, seed=0)
-    placement = shard_params_for_tp(dict(unet.named_parameters()), mesh)
     tcfg = TrainConfig(remat=True)
-    state = create_train_state(unet, tcfg, mesh, placement)
+    state = create_train_state(unet, tcfg, mesh)  # shard_params_for_tp at its default min_size
     step = make_train_step(unet, Scheduler(SchedulerConfig()), tcfg, "temporal", mesh)
     L, hw = 4, 8  # one window per data row
     batch = {"latents_x0": torch.zeros((1, L, hw, hw, 4)),

@@ -88,9 +88,10 @@ def train(pipeline, batcher, loop_cfg: LoopConfig, train_cfg: TrainConfig | None
     """Run the loop on the pipeline's device. ``pipeline`` provides VAE
     encoding and the UNet module; gradients update the UNet only (the VAE
     stays frozen, as in SD fine-tuning). Under ``mesh`` every rank calls
-    it, ``batch_size`` is the global batch, and ``placement`` (by default
-    ``shard_params_for_tp`` at its default ``min_size``) says which
-    parameters the model axis splits."""
+    it, ``batch_size`` is the global batch, and ``placement`` says which
+    parameters the model axis splits (``create_train_state``: by default
+    ``shard_params_for_tp`` at its default ``min_size``; another placement is
+    for toy widths that the default leaves whole)."""
     train_cfg = train_cfg or TrainConfig()
     os.makedirs(loop_cfg.out_dir, exist_ok=True)
     metrics_path = osp.join(loop_cfg.out_dir, "metrics.jsonl")

@@ -158,10 +158,6 @@ def factored_dims(shape) -> tuple[int, int] | None:
     return int(order[-2]), int(order[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return x.square().mean().sqrt()
-
-
 def slot_sharded(layout: ShardLayout | None, slot: str, name: str) -> bool:
     """Whether optimiser slot ``slot`` of parameter ``name`` is held as a
     slice along dim 0: AdamW's moments and Adafactor's full second moment
@@ -245,99 +241,69 @@ class Optimizer:
             return g_norm
         # Adafactor: the second moment decays at 1 - (t + 1)^-0.8, t the count
         # before this step
-        decay = 1.0 - count ** -ADAFACTOR_DECAY_EXPONENT
-        split = layout is not None and layout.model > 1
-        local = [k for k in params if not (split and layout.sharded(k))]
-        for name in local:
-            update = self._adafactor_direction(name, grads[name] * clip, opt_state, decay,
-                                               params[name].shape)
-            update.div_(torch.clamp(_rms(update) / ADAFACTOR_CLIP_RMS, min=1.0))
-            self._adafactor_apply(params[name], update, lr, _rms(params[name]))
-        if split:
-            self._adafactor_sharded([k for k in params if layout.sharded(k)], grads, clip,
-                                    opt_state, params, layout, lr, decay)
+        self._adafactor(grads, clip, opt_state, params, layout, lr,
+                        1.0 - count ** -ADAFACTOR_DECAY_EXPONENT)
         return g_norm
 
-    def _adafactor_direction(self, name: str, g: torch.Tensor, opt_state: dict, decay: float,
-                             shape) -> torch.Tensor:
-        """Fold ``g`` (consumed) into the second moment; returns g scaled
-        by its inverse square root, before the rms clip."""
-        g2 = g.square().add_(ADAFACTOR_EPS)
-        dims = factored_dims(shape)
-        if dims is None:
-            v = opt_state["v"][name].mul_(decay).add_(g2, alpha=1.0 - decay)
-            return g.mul_(v.rsqrt())
-        d1, d0 = dims
-        v_row = opt_state["v_row"][name].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
-        v_col = opt_state["v_col"][name].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
-        row = (v_row / v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt_()
-        return g.mul_(row.unsqueeze(d0)).mul_(v_col.rsqrt().unsqueeze(d1))
-
-    def _adafactor_apply(self, p: torch.Tensor, update: torch.Tensor, lr: float,
-                         p_rms: torch.Tensor) -> None:
-        update.mul_(lr).mul_(torch.clamp(p_rms, min=ADAFACTOR_MIN_PARAM_RMS))
-        if self.cfg.weight_decay:
-            update.add_(p, alpha=self.cfg.weight_decay)
-        p.sub_(update)
-
-    def _adafactor_sharded(self, names: list, grads: dict, clip: torch.Tensor, opt_state: dict,
-                           params: dict, layout: ShardLayout, lr: float, decay: float) -> None:
-        """Adafactor on this rank's slices of the ``names`` parameters, as
-        optax computes it on the whole arrays: the factoring follows the
-        whole shape, the statistics come from the whole gradient, and what
-        spans the sharded dim (the row normaliser where ``v_row`` keeps dim
-        0, the rms of the update and of the parameter) is summed over the
-        model group, in two flattened all-reduces."""
-        sums, p_at, norm_at, pending, at = [], {}, {}, {}, 0  # at: offset in the flat sums
-        for name in names:  # the moments, and the partial sums of the first all-reduce
-            shape, p = layout.shapes[name], params[name]
-            g = grads[name] * clip
+    def _adafactor(self, grads: dict, clip: torch.Tensor, opt_state: dict, params: dict,
+                   layout: ShardLayout | None, lr: float, decay: float) -> None:
+        """Adafactor as optax computes it on the whole arrays, for whole
+        tensors and for this rank's slices alike: the factoring follows the
+        whole shape and the statistics come from the whole gradient (scaled
+        in place by ``clip``). The sums that span a sharded dim -- the row
+        normaliser where ``v_row`` keeps dim 0 and averages over it, and the
+        sums of squares of the update and of the parameter -- are completed
+        over the model group in two flattened all-reduces."""
+        shapes = layout.shapes if layout is not None else {k: tuple(p.shape)
+                                                            for k, p in params.items()}
+        shard = layout.shard if layout is not None else (lambda name, x: x)
+        row_sums, dirs = {}, {}
+        for name in params:  # the second moments, and the row normaliser's partial sums
+            g = grads[name].mul_(clip)
             g2 = g.square().add_(ADAFACTOR_EPS)
-            p_at[name], at = at, at + 1
-            sums.append(p.square().sum().reshape(1))
-            dims = factored_dims(shape)
+            dims = factored_dims(shapes[name])
             if dims is None:
-                v = opt_state["v"][name].mul_(decay).add_(layout.shard(name, g2),
-                                                          alpha=1.0 - decay)
-                pending[name] = layout.shard(name, g).mul_(v.rsqrt())
+                v = opt_state["v"][name].mul_(decay).add_(shard(name, g2), alpha=1.0 - decay)
+                dirs[name] = shard(name, g).mul_(v.rsqrt())
                 continue
             d1, d0 = dims
             for slot, d in (("v_row", d0), ("v_col", d1)):
                 new = g2.mean(d)
-                if slot_sharded(layout, slot, name):
-                    new = layout.shard(name, new)
-                opt_state[slot][name].mul_(decay).add_(new, alpha=1.0 - decay)
-            v_row, axis = opt_state["v_row"][name], d1 - 1 if d1 > d0 else d1
-            if slot_sharded(layout, "v_row", name) and axis == 0:
-                # the normaliser averages over the sharded dim
-                part = v_row.sum(0, keepdim=True)
-                norm_at[name], at = (at, part.shape), at + part.numel()
-                sums.append(part.reshape(-1))
-                pending[name] = g
-            else:
-                pending[name] = (g, v_row.mean(axis, keepdim=True))
-        sums = layout.mesh.all_reduce(torch.cat(sums), "model")
-        for name in names:  # the directions, and the second all-reduce
-            dims = factored_dims(layout.shapes[name])
-            if dims is None:
-                continue
-            d1, d0 = dims
-            if name in norm_at:
-                i0, shape = norm_at[name]
-                g = pending[name]
-                norm = sums[i0:i0 + math.prod(shape)].reshape(shape) / layout.shapes[name][d1]
-            else:
-                g, norm = pending[name]
-            row = (opt_state["v_row"][name] / norm).rsqrt_()
-            pending[name] = layout.shard(name, g).mul(row.unsqueeze(d0)).mul_(
+                opt_state[slot][name].mul_(decay).add_(
+                    shard(name, new) if slot_sharded(layout, slot, name) else new,
+                    alpha=1.0 - decay)
+            # v_row's mean over d1, which is v_row's dim d1 - (d1 > d0)
+            row_sums[name] = opt_state["v_row"][name].sum(d1 - (d1 > d0), keepdim=True)
+            dirs[name] = g
+        # a sum over v_row's dim 0 spans the shards where v_row keeps dim 0
+        # (d0 != 0) and d1 is dim 0
+        _sum_over_model(layout, row_sums, [k for k in row_sums if slot_sharded(layout, "v_row", k)
+                                           and factored_dims(shapes[k])[0] == 0])
+        for name, row_sum in row_sums.items():
+            d1, d0 = factored_dims(shapes[name])
+            row = (opt_state["v_row"][name] / (row_sum / shapes[name][d1])).rsqrt_()
+            dirs[name] = shard(name, dirs[name]).mul_(row.unsqueeze(d0)).mul_(
                 opt_state["v_col"][name].rsqrt().unsqueeze(d1))
-        upd_sq = layout.mesh.all_reduce(
-            torch.stack([pending[name].square().sum() for name in names]), "model")
-        for i, name in enumerate(names):
-            numel = math.prod(layout.shapes[name])
-            update = pending.pop(name)
-            update.div_(torch.clamp((upd_sq[i] / numel).sqrt() / ADAFACTOR_CLIP_RMS, min=1.0))
-            self._adafactor_apply(params[name], update, lr, (sums[p_at[name]] / numel).sqrt())
+        sq = {k: torch.stack([u.square().sum(), params[k].square().sum()])
+              for k, u in dirs.items()}
+        _sum_over_model(layout, sq, [k for k in sq if layout is not None and layout.sharded(k)])
+        for name, update in dirs.items():
+            u_rms, p_rms = (sq[name] / math.prod(shapes[name])).sqrt().unbind()
+            update.div_(torch.clamp(u_rms / ADAFACTOR_CLIP_RMS, min=1.0))
+            update.mul_(lr).mul_(torch.clamp(p_rms, min=ADAFACTOR_MIN_PARAM_RMS))
+            if self.cfg.weight_decay:
+                update.add_(params[name], alpha=self.cfg.weight_decay)
+            params[name].sub_(update)
+
+
+def _sum_over_model(layout: ShardLayout | None, sums: dict, names: list) -> None:
+    """Replace the partial sums ``sums[k]`` of ``names`` by their sums over
+    the model group, in one flattened all-reduce."""
+    if layout is None or not names:
+        return
+    flat = layout.mesh.all_reduce(torch.cat([sums[k].reshape(-1) for k in names]), "model")
+    for k, part in zip(names, flat.split([sums[k].numel() for k in names])):
+        sums[k] = part.view_as(sums[k])
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
@@ -348,9 +314,11 @@ def create_train_state(unet: UNetMultiviewCondition, cfg: TrainConfig, mesh: Mes
                        placement: dict | None = None) -> TrainState:
     """fp32 masters copied from the module's parameters, zero moments, and
     a device EMA shadow when ``ema_decay`` is set and ``ema_host`` is not.
-    Under ``mesh`` the parameters of ``placement`` (by default
-    ``shard_params_for_tp`` at its default ``min_size``) are held as this
-    rank's ``1/model`` slices, with their moments and shadow."""
+    Under ``mesh`` the parameters of ``placement`` are held as this rank's
+    ``1/model`` slices, with their moments and shadow. ``placement``
+    defaults to ``shard_params_for_tp`` at its default ``min_size``; another
+    placement (the rule at a lower ``min_size``) is for models too narrow
+    for the default to shard anything, as in the tests."""
     named = dict(unet.named_parameters())
     layout = None
     if mesh is not None:
