@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,bench,train,train_run  # the measurement entry points
     python3 chip_smoke.py --phases build,waves,kernels   # waves and CP over NCCL, CP shapes
     python3 chip_smoke.py --phases build,train_dp        # dp / tp training over NCCL
+    python3 chip_smoke.py --phases build,units,kernels   # the measurement tools
 
 Phases:
 
@@ -66,23 +67,27 @@ Phases:
    loaded weights must equal the saved ones bit for bit; the task must run
    12 windows; B3 and B4 must have launched, every attention launch on
    the kernel the table routes its shape to.
-3c. ``demo4d``: the ``exp=demo_4d`` preset's schedule (window 12, stride
-   2, three rounds spatial / temporal / spatial, DDIM, CFG 2.0 split on the
-   temporal domain, bf16, random weights from seed 0) on a synthetic scene of
-   16 cameras x 12 frames at 1024^2 (4 frames rendered, the rest hardlinked),
-   inputs [1, 5, 9, 13]: 12 spatial tasks per spatial round and 12 temporal
-   tasks of L = 24 rows, 6 windows each, 216 window steps, in two parts on
-   one output directory. (a) The sampler, built as the CLI builds it, with
+3c. ``demo4d``: the ``exp=demo_4d`` preset's schedule (window 12, three
+   rounds spatial / temporal / spatial, DDIM, CFG 2.0 split on the temporal
+   domain, bf16, random weights from seed 0), cut from stride 2 to stride 4
+   (3 windows a task at the same shapes: the cut that pays for the units
+   phase), on a synthetic scene of 16 cameras x 12 frames at 1024^2 (4
+   frames rendered, the rest hardlinked), inputs [1, 5, 9, 13]: 12 spatial
+   tasks per spatial round and 12 temporal tasks of L = 24 rows, 108 window
+   steps, in two parts on one output directory. (a) One session of
+   ``demo4d_chain`` (its ``run_chain`` with this process's session, rolled
+   up by ``demo4d_report``, whose session, grid and image counts must match
+   the state): the sampler, built as the CLI builds it, with
    ``pose_cache_mb=200`` (the 16-row spatial tasks materialise their pose
-   features, the 24-row temporal tasks stream them) in chunks of 2 windows
+   features, the 24-row temporal tasks stream them) in chunks of one window
    (3 a task), ``task_budget=17`` and a state every 4 tasks: it must stop
    with ``state/grid_state.d4d`` at round 1 + 5 tasks, its latents equal to
    the card's grid bit for bit. Then, for one temporal task, every chunk's
    streamed pose features must equal the cache's materialised rows -- at the
    pipeline's chunking of the task's windows and at windows of 4 + 4 rows
-   whose chunk unions are renumbered and padded (pad_u 12, 4 pad rows) --
-   and the cached conditional latents warm must equal cold, bit for bit,
-   each row computed beside other rows on the two sides.
+   in chunks of 2 whose unions are renumbered and padded (pad_u 12, 4 pad
+   rows) -- and the cached conditional latents warm must equal cold, bit
+   for bit, each row computed beside other rows on the two sides.
    (b) ``cli.main(["exp=demo_4d", ...,
    "evaluating=true"])`` must resume at round 1 + 5 tasks, run the other 7 +
    12 tasks, return 0 and write 192 JPEGs, ``transforms.json`` with 192
@@ -92,6 +97,9 @@ Phases:
    part and read just after: B3 and B4 must launch in both, every
    attention launch on the kernel the table routes its shape to, at the
    spatial (L = 16, CFG batch 32) and temporal (L = 24, split CFG) shapes.
+   (c) ``temporal_wave_proof``'s ``main`` on the same scene and cut: it
+   must seed and write a round-1 state and run one temporal task, launching
+   B3 and B4, every attention launch on its routed kernel.
 3d. ``variants``: the checkpoint variants from diffusers directories
    written by ``save_hf_checkpoint`` (random bf16 weights from seed 0 at
    the production widths, SD2.1's noise schedule). (a) The skeleton-latent
@@ -170,14 +178,27 @@ Phases:
    equal. It prints the step times with and without the mesh, the time in
    all-reduces and all-gathers per step, the peak memory, the state's bytes
    and the launches, beside the card's name and power limit.
+4d. ``units``: the port's measurement tools at full width, each through
+   its ``main`` in this process at a few calls (a warm-up, then one window
+   of ``--iters``; ``UNITS_TOOLS``), writing its JSON beside the ``--out``
+   file under ``units/``: ``profile_units``, ``profile_unet_units``,
+   ``profile_vae``, ``profile_vae_conv`` (which holds B4 against its plain
+   version at the VAE shapes), ``profile_window`` (spatial: the attention
+   shapes, a full window step, VAE encode and decode of 4),
+   ``attn_ceiling`` and ``bench_flash_backward`` (which holds dQ, dK and dV
+   against the plain version). Each must exit 0 with every time positive;
+   counters are zeroed just before the tools and read just after: B3, B4,
+   B5 and the fused backward must launch, every attention launch on the
+   kernel the table routes its shape to, and the window step's shapes among
+   them. One line per tool.
 5. ``kernels``: each kernel against its plain PyTorch version, in bf16,
    with CUDA-event times of both, of the one PyTorch library call that
    computes the same function (a yardstick, called nowhere in the port) and
    the card's bound for the work, at a fixed list of the paths' shapes (the
    d = 64 kernel at the table's blocks; the single pass at S 256, 512 and
    1,024, a ragged S and its largest Sk, 4,096) plus every (shape, epilogue
-   variant or block sizes) the tune, bench, slice, cli, demo4d, train and
-   variants phases launched, and context parallelism's attention shapes
+   variant or block sizes) the tune, bench, slice, cli, demo4d, train,
+   variants, waves, train_dp and units phases launched, and context parallelism's attention shapes
    (``CP_ATTN64_SHAPES``: Sq = Sk * groups / n queries against the gathered
    Sk keys, the bench's windows at model 4 and 8) on the kernel ``route``
    gives each, each beside its Sq = Sk time; the temporal mid block (Sk
@@ -189,8 +210,10 @@ Phases:
    train shape, and its dQ, dK and dV must repeat bit for bit.
 
 ``--phases profile`` (not in the default set) adds a torch.profiler
-breakdown of one CFG window step, one VAE decode micro-batch and one train
-step by kernel group, written beside the ``--out`` file as ``profile_*.txt``.
+breakdown of one CFG window step, one VAE decode micro-batch, a VAE encode
+of 2 images at 1024^2 and one train step by kernel group, written beside
+the ``--out`` file as ``profile_*.txt``, then ``probe_temporal_mem`` at the
+production 48 x 150 shapes (CFG fused, then the temporal domain split).
 ``--phases build,demo4d_prod`` (not in the default set) runs the production
 demo_4d grid (48 cameras x 150 frames at 1024^2, 4 frames rendered) through
 ``python -m diffuman4d_torch.demo4d_prefix``'s ``main``: a session of 2
@@ -201,7 +224,8 @@ session of two production temporal tasks (300 rows, 75 windows, streamed
 in 15 chunks of 5) from a state that claims round 1 done; then a DPM++
 checkpoint's one-task session and a resumed one, with the state's bytes
 (latents and multistep history), ``save_state``'s copy and write and the
-resume's load.
+resume's load; last, ``demo4d_slice`` (one spatial and one temporal task on
+the full grid, CFG fused, the state written and resumed).
 ``--phases build,overlap`` (not in the default set) times 4 tasks of
 demo_4d's last round (16 x 12, every target decoded) through the saver
 thread and through the serial path, in turns after one untimed run.
@@ -232,7 +256,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "tune", "bench", "reference", "slice", "cli", "demo4d", "train", "variants",
-          "waves", "train_dp", "kernels")
+          "waves", "train_dp", "units", "kernels")
 EXTRA_PHASES = ("profile", "demo4d_prod", "overlap", "train_run")  # run only when asked for
 
 # (B, S, H) at head dim 64: the UNet's attention at a 16-row CFG window over
@@ -272,13 +296,16 @@ D4D_CAMERAS, D4D_FRAMES, D4D_INPUTS = 16, 12, (1, 5, 9, 13)
 # (168 MB of pose features) materialise and the 24-row temporal tasks
 # (252 MB) stream, as production's 48-row and 300-row tasks do at 640 MB
 D4D_BUDGET, D4D_CKPT_EVERY, D4D_POSE_CACHE_MB = 17, 4, 200
-D4D_WINDOWS = 6  # windows per task in both domains (12 targets, stride 2)
-# part (a)'s pipeline streams a temporal task in chunks of 2 windows (3
+# the demo4d phase runs the preset at stride 4 (3 windows a task, half the
+# preset's window steps at the same shapes: the cut that pays for the units
+# phase); its pipeline streams a temporal task in chunks of one window (3
 # chunks a task), as production's 300-row tasks run in chunks of 5; every
 # window of a 24-row task holds all 24 rows, so the equality check adds
-# windows of 4 + 4 rows whose chunk unions differ (10, 10 and 12 rows:
-# pad_u 12, 4 pad rows), which the pipeline renumbers and pads
-D4D_WINDOW_CHUNK = 2
+# windows of 4 + 4 rows in chunks of 2, whose chunk unions differ (10, 10
+# and 12 rows: pad_u 12, 4 pad rows), which the pipeline renumbers and pads
+D4D_STRIDE = 4
+D4D_WINDOWS = 3  # windows per task in both domains (12 targets, stride 4)
+D4D_WINDOW_CHUNK, D4D_PAD_CHUNK = 1, 2
 D4D_PADDED_WINDOWS = [(k, 4) for k in (0, 1, 2, 3, 4, 6)]  # (first frame, frames)
 # variants: SD2.1's noise schedule in a diffusers scheduler config (the class
 # name is set per run); (a) runs demo_4d's preset on the demo4d grid cut to
@@ -947,9 +974,10 @@ PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
 def phase_profile(unet, vae, out_dir: Path) -> dict:
     """Device time by kernel group (torch.profiler) for one CFG window step
     of the slice (batch 32 at 128^2 latents, 16-frame 3D attention), one
-    VAE decode micro-batch (2 latents of 128^2) and one full-width train
-    step, plus each one's wall time around a synchronise: the device's idle
-    share is 1 - busy / wall."""
+    VAE decode micro-batch (2 latents of 128^2), a VAE encode of 2 images
+    at 1024^2 and one full-width train step, plus each one's wall time
+    around a synchronise: the device's idle share is 1 - busy / wall. Then
+    ``probe_temporal_mem``'s programs at the production 48 x 150 shapes."""
     import re
 
     import torch
@@ -979,8 +1007,11 @@ def phase_profile(unet, vae, out_dir: Path) -> dict:
     eps = torch.randn((1, TRAIN_L, 128, 128, 4), generator=gen, device="cuda")
     state = create_train_state(unet, tcfg)
     step = make_train_step(unet, Scheduler(SchedulerConfig(), "cuda"), tcfg)
+    img = torch.rand((2, 1024, 1024, 3), generator=gen, device="cuda").bfloat16() * 2 - 1
+    noise = torch.randn((2, 128, 128, 4), generator=gen, device="cuda")
     work = {"unet_window_step": no_grad(lambda: unet(x, t, num_frames=16, pose_features=pose)),
             "vae_decode_x2": no_grad(lambda: vae.decode(z)),
+            "vae_encode_x2": no_grad(lambda: vae.encode(img, noise=noise)),
             "train_step": lambda: step(state, batch, t=t_fix, eps=eps)}
     res = {}
     for name, fn in work.items():
@@ -1014,6 +1045,26 @@ def phase_profile(unet, vae, out_dir: Path) -> dict:
             log(f"    {ms:9.2f} ms  {100 * ms / busy_ms:5.1f}%  {g}")
         (out_dir / f"profile_{name}.txt").write_text(prof.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=40))
+    del state, step
+    torch.cuda.empty_cache()
+    # probe_temporal_mem at the production 48 x 150 shapes: both domains
+    # with CFG fused, then the temporal domain with CFG split (production's)
+    import io
+
+    from diffuman4d_torch import probe_temporal_mem
+
+    res["probe_temporal_mem"] = []
+    for argv in ([], ["--domains", "temporal", "--split", "temporal", "--skip-chunk-cond"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = probe_temporal_mem.main(argv)
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        for line in lines:
+            log(f"probe_temporal_mem {' '.join(argv)}: {json.dumps(line)}")
+        res["probe_temporal_mem"].append({"argv": argv, "rc": rc, "lines": lines})
+        torch.cuda.empty_cache()
+        if rc != 0 or not any("peak_above_gb" in x for x in lines):
+            raise AssertionError(f"profile: probe_temporal_mem {argv} exited {rc}: {lines}")
     return res
 
 
@@ -1603,7 +1654,7 @@ def _cache_equalities(pipe, sampler) -> dict:
         materialised = pipe._pose_features_lru(sample)
         task_chunks = _streamed_chunks(pipe, cond, windows,
                                        pipe._window_chunk_size(len(windows)), materialised)
-        padded_chunks = _streamed_chunks(pipe, cond, padded, D4D_WINDOW_CHUNK, materialised)
+        padded_chunks = _streamed_chunks(pipe, cond, padded, D4D_PAD_CHUNK, materialised)
         pipe.clear_condition_caches()
         cold = pipe._cond_latents_cached(sample, cond_rows)
         pipe.clear_condition_caches()
@@ -1638,19 +1689,24 @@ def _skeleton_equalities(pipe, sampler) -> dict:
                "batch_independent": bool(torch.equal(every_third, z[1::3])),
                "task_chunks": _streamed_chunks(pipe, cond, windows, 1, z, "skeleton_latents"),
                "padded_chunks": _streamed_chunks(pipe, cond, _padded_windows(len(z)),
-                                                 D4D_WINDOW_CHUNK, z, "skeleton_latents")}
+                                                 D4D_PAD_CHUNK, z, "skeleton_latents")}
         pipe.clear_condition_caches()
     return res
 
 
 def phase_demo4d(work: Path) -> dict:
     """demo_4d's schedule at full width in two parts on one output
-    directory: (a) a budgeted prefix through the sampler, (b) the rest
-    through the port's CLI, which resumes from (a)'s grid state."""
+    directory: (a) a budgeted prefix through the sampler, as a session of
+    ``demo4d_chain`` rolled up by ``demo4d_report``, (b) the rest through
+    the port's CLI, which resumes from (a)'s grid state; then (c)
+    ``temporal_wave_proof``'s temporal task on the same scene."""
+    import io
+
     import numpy as np
     import torch
 
-    from diffuman4d_torch import cli
+    from diffuman4d_torch import (
+        cli, demo4d_chain, demo4d_prefix, demo4d_report, temporal_wave_proof)
     from diffuman4d_torch.configs.presets import build_config
     from diffuman4d_torch.io.gridstate import read_state
     from diffuman4d_torch.ops import conv, flash_attention as fa
@@ -1666,45 +1722,77 @@ def phase_demo4d(work: Path) -> dict:
             f"sampler.spa_label_range=[0,{D4D_CAMERAS},1]",
             f"sampler.tem_label_range=[0,{D4D_FRAMES},1]",
             "sampler.input_spa_labels=[" + ",".join(map(str, D4D_INPUTS)) + "]",
-            f"sampler.output_dir={out}", "evaluating=true"]
+            f"sampler.sliding_stride={D4D_STRIDE}", f"sampler.output_dir={out}",
+            "evaluating=true"]
     cfg = build_config(argv)
     total_steps = loader.sliding_from(cfg.sampler).total_steps
     wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3}
     expected = [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES + TEMPORAL_ATTN64_SHAPES]
 
-    # (a) the budgeted prefix: the sampler directly, the CLI's construction
+    # (a) the budgeted prefix: the sampler directly, the CLI's construction,
+    # as one session of demo4d_chain (in this process), rolled up by
+    # demo4d_report
     calls_a: list = []
     pipe = loader.load_pipeline(cfg.model, cfg.sampler, cfg.data, device="cuda",
                                 pose_cache_mb=D4D_POSE_CACHE_MB, window_chunk=D4D_WINDOW_CHUNK)
-    sampler = cli.build_sampler(cfg, pipe, task_budget=D4D_BUDGET,
-                                checkpoint_every_tasks=D4D_CKPT_EVERY)
-    fresh = (sampler._completed_rounds, sampler._resume_tasks_done)
-    report(reset=True)
-    with _patched(pp.Diffuman4DPipeline, "sliding_denoise",
-                  _recording(calls_a, "sliding_denoise")), \
-            _patched(pp.Diffuman4DPipeline, "prepare_conditions",
-                     _recording(calls_a, "prepare_conditions")):
-        torch.cuda.reset_peak_memory_stats()
-        _reset(wrappers.values())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sampler.execute_tasks()
-        torch.cuda.synchronize()
-        prefix_s = time.perf_counter() - t0
+    a: dict = {}
+
+    def session(argv: list, log_path: Path) -> int:
+        opts = demo4d_prefix._args(argv)
+        sampler = cli.build_sampler(cfg, pipe, task_budget=opts.task_budget,
+                                    checkpoint_every_tasks=opts.checkpoint_every)
+        a["sampler"], a["fresh"] = sampler, (sampler._completed_rounds,
+                                             sampler._resume_tasks_done)
+        report(reset=True)
+        with _patched(pp.Diffuman4DPipeline, "sliding_denoise",
+                      _recording(calls_a, "sliding_denoise")), \
+                _patched(pp.Diffuman4DPipeline, "prepare_conditions",
+                         _recording(calls_a, "prepare_conditions")):
+            torch.cuda.reset_peak_memory_stats()
+            _reset(wrappers.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampler.execute_tasks()
+            torch.cuda.synchronize()
+            a["prefix_s"] = time.perf_counter() - t0
+        a["phases"] = report(reset=True)
+        log_path.write_text(json.dumps({  # the line demo4d_prefix prints
+            "resumed_rounds": a["fresh"][0], "resumed_tasks": a["fresh"][1],
+            "tasks_run": sampler._tasks_run, "run_s": a["prefix_s"],
+            "complete": sampler._completed_rounds == len(sampler.all_tasks),
+            "phases": a["phases"]}) + "\n")
+        return 0
+
+    chain_dir = work / "demo4d_chain"
+    sessions = demo4d_chain.run_chain(D4D_BUDGET, 1, 0, chain_dir, [], session=session,
+                                      checkpoint_every=D4D_CKPT_EVERY)
+    sampler, fresh, prefix_s, phases_a = a["sampler"], a["fresh"], a["prefix_s"], a["phases"]
     launches_a, shapes_a = _kernel_counts(wrappers)
     routed_a = _check_routes(fa.KERNELS, expected)
     peak_a = torch.cuda.max_memory_allocated() / 1e9
-    phases_a = report(reset=True)
     meta_a, data = read_state(sampler._state_path)
     grid_bits = _to_host_bits(sampler.grid_latents)
     state_a_equal = bool(np.array_equal(np.asarray(data["latents"]), grid_bits)
                          and np.array_equal(np.asarray(data["t_idx"]), sampler.grid_t_idx))
     state_gb = Path(sampler._state_path).stat().st_size / 1e9
     del data
+    rolled = demo4d_report.report(str(chain_dir / "sessions.jsonl"), str(out))
+    rolled_got = {"sessions": [(r["rc"], r["start_round"], r["start_tasks"], r["tasks"])
+                               for r in rolled["sessions"]],
+                  "grid": (rolled["grid"]["completed_rounds"],
+                           rolled["grid"]["tasks_done_in_round"]),
+                  "images": rolled["images_on_disk"]}
+    rolled_want = {"sessions": [(0, 0, 0, D4D_BUDGET)],
+                   "grid": (meta_a["completed_rounds"], meta_a["tasks_done_in_round"]),
+                   "images": len(list((out / "images").rglob("*.jpg")))}
+    log(f"demo4d: chain {json.dumps(sessions)}; report {json.dumps(rolled_got)}")
+    if rolled_got != rolled_want:
+        raise AssertionError(f"demo4d: chain / report {rolled_got}, expected {rolled_want}")
     t0 = time.perf_counter()
     equalities = _cache_equalities(pipe, sampler)
     equalities_s = time.perf_counter() - t0
     del sampler, pipe
+    a.clear()
     torch.cuda.empty_cache()
 
     # (b) the rest through the CLI, from (a)'s state
@@ -1735,6 +1823,23 @@ def phase_demo4d(work: Path) -> dict:
     peak_b = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
 
+    # (c) temporal_wave_proof on this scene: a seeded round-1 state, then one
+    # temporal task of the preset (cut to stride 4 like the rest)
+    buf = io.StringIO()
+    _reset(wrappers.values())
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc_proof = temporal_wave_proof.main(
+            ["--scene", str(data_dir), "--out", str(work / "demo4d_tproof"), "--size", "1024",
+             "--task-budget", "1", *argv[2:-2]])
+    proof_s = time.perf_counter() - t0
+    proof_lines = buf.getvalue().strip().splitlines()
+    log("\n".join(x for x in proof_lines if x.startswith("[tproof]")))
+    proof = json.loads(proof_lines[-1]) if rc_proof == 0 else {}
+    _check_routes(fa.KERNELS, [])
+    proof_launches = {n: f.launches for n, f in wrappers.items()}
+    torch.cuda.empty_cache()
+
     meta, data = read_state(str(out / "state" / "grid_state.d4d"))
     t_idx = np.asarray(data["t_idx"])
     inputs = [int(i) for i in D4D_INPUTS]
@@ -1743,6 +1848,8 @@ def phase_demo4d(work: Path) -> dict:
     metrics = json.loads((out / "metrics.json").read_text())
     phases = json.loads((out / "phases.json").read_text())
     res = {"scene_s": scene_s, "prefix_s": prefix_s, "cli_s": cli_s, "equalities_s": equalities_s,
+           "chain": sessions, "report": rolled_got,
+           "tproof": {"rc": rc_proof, "s": proof_s, "run": proof, "launches": proof_launches},
            "prefix": {"fresh_at": fresh, "state": meta_a, "state_equals_grid": state_a_equal,
                       "state_gb": state_gb, "by_domain": _by_domain(calls_a),
                       "phases": phases_a, "peak_gb": peak_a, "launches": launches_a,
@@ -1798,6 +1905,12 @@ def phase_demo4d(work: Path) -> dict:
         raise AssertionError(f"demo4d: (got, expected) {wrong}")
     if not math.isfinite(metrics["mean"]["psnr"]):
         raise AssertionError(f"demo4d: mean PSNR {metrics['mean']}")
+    seeded = work / "demo4d_tproof" / "state" / "grid_state_seeded.d4d"
+    proof_got = (rc_proof, proof.get("tasks"), proof.get("state"), seeded.is_file())
+    if proof_got != (0, 1, [1, 1], True) or not (proof_launches["flash_fwd_d512"]
+                                                  and proof_launches["conv3x3"]):
+        raise AssertionError(f"demo4d: temporal_wave_proof rc {rc_proof}, {proof}, seeded state "
+                             f"{seeded.is_file()}, launches {proof_launches}")
     for part, launches in (("prefix", launches_a), ("cli", launches_b)):
         for name in ("flash_fwd_d512", "conv3x3"):  # attention: _check_routes
             if not launches[name]:
@@ -2279,7 +2392,85 @@ def phase_demo4d_prod(work: Path) -> dict:
     if got != [(0, 0, 0, 1), (0, 0, 1, 1)] or sorted(dpm["arrays"]) != [
             "aux_has_prev", "aux_prev_x0", "latents", "t_idx"]:
         raise AssertionError(f"demo4d_prod DPM++: runs {got}, state {dpm}")
+
+    # demo4d_slice: one spatial and one temporal task of the full grid at
+    # production shapes, CFG fused on both (the script's pipeline), then the
+    # state written and resumed
+    from diffuman4d_torch import demo4d_slice
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = demo4d_slice.main(["--scene", str(scene), "--out", str(work / "prod_slice_out")])
+    lines = buf.getvalue().strip().splitlines()
+    log("\n".join(x for x in lines if x.startswith("[slice]")))
+    res["slice"] = json.loads(lines[-1]) if rc == 0 else {"rc": rc}
+    torch.cuda.empty_cache()
+    tasks = res["slice"].get("tasks", {})
+    if rc != 0 or res["slice"]["grid"][:2] != [48, 150] or \
+            [tasks.get(d, {}).get("rows") for d in ("spatial", "temporal")] != [48, 300]:
+        raise AssertionError(f"demo4d_prod: demo4d_slice exited {rc}: {res['slice']}")
     return res
+
+
+# the units phase: the port's per-unit measurement tools at full width, in
+# this process, each at a few calls (warm-up, then one window of --iters)
+UNITS_TOOLS = (
+    ("profile_units", ["--iters", "2"]),
+    ("profile_unet_units", ["--iters", "2"]),
+    ("profile_vae", ["--iters", "2"]),
+    ("profile_vae_conv", ["--iters", "2"]),
+    ("profile_window", ["--iters", "1", "--domain", "spatial"]),
+    ("attn_ceiling", ["--iters", "3"]),
+    ("bench_flash_backward", ["--iters", "1"]),
+)
+
+
+def phase_units(out_dir: Path, smi: str) -> dict:
+    """The measurement tools' entry points (``main``) at full width, each
+    writing its JSON under ``out_dir``; counters zeroed just before the
+    tools and read just after (every attention launch on the kernel the
+    table routes its shape to, and the window step's shapes among them)."""
+    import importlib
+    import io
+
+    import torch
+
+    from diffuman4d_torch.ops import conv, flash_attention as fa, flash_backward as fb
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    wrappers = {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3,
+                "flash_fwd_lse": fb.flash_fwd_lse, "flash_bwd": fb.flash_bwd}
+    _reset(wrappers.values())
+    tools = {}
+    for name, argv in UNITS_TOOLS:
+        tool = importlib.import_module(f"diffuman4d_torch.{name}")
+        out = out_dir / f"{name}.json"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main([*argv, "--windows", "1", "--out", str(out)])
+        secs = time.perf_counter() - t0
+        (out_dir / f"{name}.log").write_text(buf.getvalue())
+        rep = json.loads(out.read_text())
+        results = rep["results"]
+        ms = [r["ms"] for r in results.values() if isinstance(r, dict) and "ms" in r]
+        ms += [r[k]["ms"] for r in results.values() for k in ("train", "library")
+               if isinstance(r.get(k), dict) and "ms" in r[k]]
+        ms += [r[k] for r in results.values() for k in ("flash_ms", "attn_ms") if k in r]
+        tools[name] = {"rc": rc, "s": secs, "records": len(results), "card": rep["card"]}
+        log(f"units {name}: rc {rc}, {len(results)} records, {secs:.1f} s, fastest "
+            f"{min(ms):.4f} ms, slowest {max(ms):.2f} ms ({rep['card']['name']}, "
+            f"{rep['card']['power_limit']})")
+        torch.cuda.empty_cache()
+        if rc != 0 or not ms or not all(math.isfinite(x) and x > 0 for x in ms):
+            raise AssertionError(f"units: {name} exited {rc} with times {ms}")
+    launches, shapes = _kernel_counts(wrappers)
+    routed = _check_routes(fa.KERNELS, [(B, S, S, H, 64) for B, S, H in SLICE_ATTN64_SHAPES])
+    log(f"units ({smi}): launches {launches}")
+    for name in ("flash_fwd_d512", "conv3x3", "flash_fwd_lse", "flash_bwd"):
+        if not launches[name]:
+            raise AssertionError(f"units: {name} never launched: {launches}")
+    return {"tools": tools, "launches": launches, "shapes": shapes, "routed": routed}
 
 
 def _d64_split(shapes) -> dict:
@@ -2790,25 +2981,26 @@ PATHS = ("demo4d", "cli", "slice", "variants", "waves")
 KERNEL_META = {
     "flash_fwd_d64_window": ("diffuman4d_torch/csrc/flash_attn_skew_hopper.cu",
                              f"{_FA}:342 (_flash_kernel_v4)", "flash_fwd_d64", 0,
-                             (*PATHS, "tune")),
+                             (*PATHS, "tune", "units")),
     "flash_fwd_d64_frame": ("diffuman4d_torch/csrc/flash_attn_skew_hopper.cu",
                             f"{_FA}:199 (_flash_kernel_v3)", "flash_fwd_d64", 1,
-                            (*PATHS, "tune")),
+                            (*PATHS, "tune", "units")),
     "flash_fwd_d512": ("diffuman4d_torch/csrc/flash_attn_d512.cu", f"{_FA}:54 (_flash_kernel)",
-                       "flash_fwd_d512", 0, PATHS),
+                       "flash_fwd_d512", 0, (*PATHS, "units")),
     "conv3x3": ("diffuman4d_torch/csrc/conv3x3_hopper.cu",
-                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, PATHS),
+                "diffuman4d_tpu/ops/conv.py:46 (_conv_kernel)", "conv3x3", 2, (*PATHS, "units")),
     "flash_fwd_lse": ("diffuman4d_torch/csrc/flash_attn_hopper.cu", f"{_FB}:49 (_fwd_kernel)",
-                      "flash_fwd_lse", 0, "train"),
+                      "flash_fwd_lse", 0, ("train", "units")),
     "flash_bwd": ("diffuman4d_torch/csrc/flash_attn_bwd.cu",
                   f"{_FB}:162 (_dkdv_kernel) and {_FB}:205 (_dq_kernel)", "flash_bwd", 0,
-                  "train"),
+                  ("train", "units")),
     "flash_fwd_single_pass": ("diffuman4d_torch/csrc/flash_attn_single_hopper.cu",
                               f"{_FA}:463 (_flash_kernel_v5)", "flash_fwd_single_pass", 0,
-                              (*PATHS, "tune")),
+                              (*PATHS, "tune", "units")),
     "flash_fwd_single_pass_batched": ("diffuman4d_torch/csrc/flash_attn_single_hopper.cu",
                                       f"{_FA}:530 (_flash_kernel_v6)",
-                                      "flash_fwd_single_pass_batched", 0, (*PATHS, "tune")),
+                                      "flash_fwd_single_pass_batched", 0,
+                                      (*PATHS, "tune", "units")),
     "flash_fwd_two_level": ("diffuman4d_torch/csrc/flash_attn_hopper.cu",
                             f"{_FA}:96 (_flash_kernel_v2)", "flash_fwd_two_level", 0,
                             (*PATHS, "tune")),
@@ -2909,10 +3101,12 @@ def main() -> int:
         run("waves", phase_waves, work, smi)
     if "train_dp" in phases:
         run("train_dp", phase_train_dp, work, smi)
+    if "units" in phases:
+        run("units", phase_units, Path(args.out).parent / "units", smi)
     if "kernels" in phases and "build" not in results["failed"]:
         launched: dict = {}
         for phase in ("tune", "bench", "slice", "cli", "demo4d", "train", "variants", "waves",
-                      "train_dp"):
+                      "train_dp", "units"):
             for name, shapes in results.get(phase, {}).get("shapes", {}).items():
                 launched[name] = list(launched.get(name, ())) + list(shapes)
         run("kernels", phase_kernels, launched)

@@ -124,20 +124,9 @@ def _build_baseline(root: Path) -> dict:
 
 
 def _timed_ms(fn, n: int) -> float:
-    import torch
+    from diffuman4d_torch.utils.tracing import timed
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    best = math.inf
-    for _ in range(3):
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / n)
-    return best
+    return timed(fn, n) * 1e3
 
 
 def _in_turns(base, new, n: int) -> dict:

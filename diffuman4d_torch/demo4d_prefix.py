@@ -17,13 +17,15 @@ seed 0, as in the CLI.
     python -m diffuman4d_torch.demo4d_prefix --task-budget 24   # session 1
     python -m diffuman4d_torch.demo4d_prefix --task-budget 40   # resume
     python -m diffuman4d_torch.demo4d_prefix --report           # progress + export
+    python -m diffuman4d_torch.demo4d_prefix --task-budget 2 sampler.tem_label_range=[0,12,1]
 
 Each call writes ``phases.json`` (this call's phases) into the output
 directory and prints one JSON line: the resume point, the tasks run, the
 seconds they took and the peak device memory. ``--report`` runs no task and
 exports what the output directory holds so far. The card is used unless
 ``--device cpu`` is given (fp32 there); ``--arch tiny`` (with a small
-``--size``) is the smoke-test model shape.
+``--size``) is the smoke-test model shape. Trailing ``key=value`` arguments
+override the preset as on the CLI's command line (a cut grid, say).
 """
 
 from __future__ import annotations
@@ -61,10 +63,41 @@ def _args(argv):
                     help="run no task; print progress and export the outputs so far")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--arch", default="full", choices=("full", "tiny"))
+    ap.add_argument("overrides", nargs="*", metavar="key=value",
+                    help="config overrides after the preset's, as the CLI takes them")
     args = ap.parse_args(argv)
     if args.scene is None:
         args.scene = str(ROOT / "runs" / f"d4d_4d_scene_{args.size}")
     return args
+
+
+def demo4d_config(scene: str, size: int, out: str, arch: str = "full", device: str = "cuda",
+                  overrides=()):
+    """The ``exp=demo_4d`` run config on a scene root at ``size``^2 writing
+    to ``out``, at the tiny model for ``arch="tiny"``, fp32 on the CPU, with
+    the CLI-style ``overrides`` last."""
+    from diffuman4d_torch.configs.presets import build_config
+
+    return build_config(["exp=demo_4d", f"data.data_dir={scene}", f"data.height={size}",
+                         f"data.width={size}", f"sampler.output_dir={out}"]
+                        + (["model.arch=tiny"] if arch == "tiny" else [])
+                        + (["model.dtype=fp32"] if device == "cpu" else []) + list(overrides))
+
+
+def scene_missing(cfg) -> bool:
+    data = cfg.data
+    return not osp.isfile(osp.join(data.data_dir, data.scene_label, "transforms.json"))
+
+
+def make_scene(cfg) -> None:
+    """``cfg``'s synthetic scene on its grid at its size: 4 frames rendered
+    a camera, the rest hardlinked."""
+    from diffuman4d_torch.data import make_synthetic_scene
+
+    make_synthetic_scene(cfg.data.data_dir, cfg.data.scene_label,
+                         num_cams=cfg.sampler.spa_label_range[1],
+                         num_frames=cfg.sampler.tem_label_range[1], image_size=cfg.data.height,
+                         unique_frames=4)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -78,25 +111,15 @@ def main(argv: list[str] | None = None) -> int:
         print("no CUDA device: pass --device cpu to run on the CPU", file=sys.stderr)
         return 2
     from diffuman4d_torch import cli
-    from diffuman4d_torch.configs.presets import build_config
-    from diffuman4d_torch.data import make_synthetic_scene
     from diffuman4d_torch.sampling.loader import load_pipeline
     from diffuman4d_torch.utils.tracing import dump_report, phase, report
 
-    cfg = build_config(["exp=demo_4d", f"data.data_dir={args.scene}",
-                        f"data.height={args.size}", f"data.width={args.size}",
-                        f"sampler.output_dir={args.out}"]
-                       + (["model.arch=tiny"] if args.arch == "tiny" else [])
-                       + (["model.dtype=fp32"] if args.device == "cpu" else []))
+    cfg = demo4d_config(args.scene, args.size, args.out, args.arch, args.device, args.overrides)
     report(reset=True)  # phases.json holds this call only
     t0 = time.perf_counter()
-    scene_label = cfg.data.scene_label
-    if not osp.isfile(osp.join(args.scene, scene_label, "transforms.json")):
+    if scene_missing(cfg):
         with phase("prefix/make_scene", sync=False):
-            make_synthetic_scene(args.scene, scene_label,
-                                 num_cams=cfg.sampler.spa_label_range[1],
-                                 num_frames=cfg.sampler.tem_label_range[1],
-                                 image_size=args.size, unique_frames=4)
+            make_scene(cfg)
     with phase("prefix/load_pipeline"):
         pipeline = load_pipeline(cfg.model, cfg.sampler, cfg.data, device=args.device,
                                  **CACHE_MB)

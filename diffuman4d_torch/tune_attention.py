@@ -33,9 +33,12 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 from pathlib import Path
+
+# the shared kernel timer: CUDA events around n calls after a warm-up, the
+# fastest of 3 windows
+from diffuman4d_torch.utils.tracing import PEAK_BF16_FLOPS, card, timed
 
 # (name, b, s, h, d): the model's attention shapes. 3D attention = the
 # CFG-doubled window regrouped to (2, T*hw); per-frame 2D attention at
@@ -54,8 +57,6 @@ HOT_SHAPES = [
     ("2d@16sq_mid", 32, 256, 20, 64),
     ("vae_mid@128sq", 2, 16384, 1, 512),
 ]
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
-PEAK_BF16_FLOPS = 989e12
 BATCHED_BLOCK_B = (2, 4, 5, 8)
 DEFAULT_OUT = Path(__file__).resolve().parent / "ops" / "attention_table.json"
 
@@ -85,25 +86,6 @@ def candidates(b: int, s: int, h: int, d: int) -> dict[str, tuple[str, dict]]:
     return out
 
 
-def timed(fn, n: int) -> float:
-    """Seconds per call of ``fn()``: CUDA events around ``n`` calls after
-    one warm-up call, the minimum over 3 windows."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    best = math.inf
-    for _ in range(3):
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3 / n)
-    return best
-
-
 def _calls_per_window(flops: float) -> int:
     """Launches per timed window: ~20 ms of work at ~200 TFLOP/s, 1 to 50."""
     return max(1, min(50, math.ceil(0.02 / (flops / 200e12))))
@@ -121,13 +103,7 @@ def device_info() -> dict:
     """The card's name (``torch.cuda.get_device_name``) and power limit."""
     import torch
 
-    try:
-        limit = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
-    except (OSError, subprocess.CalledProcessError, IndexError):
-        limit = "not read"
-    return {"device": torch.cuda.get_device_name(), "power_limit": limit}
+    return {"device": torch.cuda.get_device_name(), "power_limit": card()["power_limit"]}
 
 
 def _write_table(out: str, new_entries: list, device: dict, kernel_source_hash) -> None:

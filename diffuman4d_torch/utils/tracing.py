@@ -1,5 +1,6 @@
 """Tracing and timing (counterpart of ``diffuman4d_tpu/utils/tracing.py``):
-phase timers and the torch profiler.
+phase timers, the torch profiler, and the one kernel timer of the port's
+measurement tools with the card's peaks and name.
 
 Usage::
 
@@ -13,6 +14,9 @@ Usage::
         ...
 
     RankedLogger(__name__).info("wave done")   # "[rank3] wave done"
+
+    sec = timed(lambda: kernel(q, k, v), n=10)  # CUDA events, min of 3 windows
+    rates(sec, flops=4 * b * h * s * s * d)    # {"ms", "tflops", "pct_of_bound", ...}
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import json
 import logging
 import os
 import os.path as osp
+import subprocess
 import threading
 import time
 from collections import defaultdict
@@ -29,6 +34,10 @@ from collections import defaultdict
 import torch
 
 log = logging.getLogger(__name__)
+
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 _TIMES: dict[str, list[float]] = defaultdict(list)
 _LOCK = threading.Lock()  # phases are also timed on the sampler's IO threads
@@ -108,3 +117,66 @@ class RankedLogger(logging.LoggerAdapter):
         if self.rank_zero_only and rank != 0:
             return
         super().log(level, f"[rank{rank}] {msg}", *args, **kwargs)
+
+
+def timed(fn, n: int = 10, warmup: int = 1, windows: int = 3) -> float:
+    """Seconds per call of ``fn()``: ``warmup`` calls, then ``windows``
+    windows of ``n`` calls each, the fastest window. On the card each
+    window is timed by CUDA events around its launches; where no card was
+    initialised (the tools' ``--device cpu``), by the host clock."""
+    for _ in range(warmup):
+        fn()
+    cuda = torch.cuda.is_initialized()
+    if cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(windows):
+        if cuda:
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3 / n)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n)
+    return best
+
+
+def rates(seconds: float, flops: float = 0.0, nbytes: float = 0.0) -> dict:
+    """A time in ms with its TFLOP/s and GB/s, and its share of the card's
+    bound for the work: the larger of ``flops`` at the bf16 peak and
+    ``nbytes`` at the HBM rate (each input read once, each output written
+    once), over the time."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    out = {"ms": seconds * 1e3}
+    if flops:
+        out["tflops"] = flops / seconds / 1e12
+    if nbytes:
+        out["gbps"] = nbytes / seconds / 1e9
+    if flops or nbytes:
+        out["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        out["pct_of_bound"] = 100.0 * max(t_ops, t_bytes) / seconds
+    return out
+
+
+def card() -> dict:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them; on the
+    CPU, ``{"name": "cpu"}``."""
+    if not torch.cuda.is_available():
+        return {"name": "cpu", "power_limit": None}
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        name, limit = (x.strip() for x in line.rsplit(",", 1))
+    except (OSError, subprocess.CalledProcessError, IndexError, ValueError):
+        name, limit = torch.cuda.get_device_name(0), "not read"
+    return {"name": name, "power_limit": limit}

@@ -135,8 +135,9 @@ def test_chip_smoke_kernel_records():
     attention kernels that the table may route sampling shapes to read
     their launches from demo_4d (budgeted, then resumed by the CLI), the
     main path, then the CLI's production demo_3d, the slice, the
-    checkpoint variants and the waves phase's wave run, and last the tuner;
-    B3 and B4 launch on the same sampling paths."""
+    checkpoint variants and the waves phase's wave run, then the tuner and
+    last the measurement tools (the units phase), which route no shape to
+    B10; B3 and B4 launch on the same sampling paths and in the tools."""
     mod = _chip_smoke()
     meta = mod.KERNEL_META
     assert len(meta) == 9  # ten TPU kernels; B6 and B7 are one fused kernel
@@ -153,22 +154,24 @@ def test_chip_smoke_kernel_records():
     for name in ("flash_fwd_single_pass", "flash_fwd_single_pass_batched"):
         assert meta[name][0] == "diffuman4d_torch/csrc/flash_attn_single_hopper.cu"
     assert mod.PATHS == ("demo4d", "cli", "slice", "variants", "waves")
-    for name in ("flash_fwd_two_level", "flash_fwd_d64_window", "flash_fwd_d64_frame",
+    assert meta["flash_fwd_two_level"][-1] == (*mod.PATHS, "tune")
+    for name in ("flash_fwd_d64_window", "flash_fwd_d64_frame",
                  "flash_fwd_single_pass", "flash_fwd_single_pass_batched"):
-        assert meta[name][-1] == (*mod.PATHS, "tune"), name
+        assert meta[name][-1] == (*mod.PATHS, "tune", "units"), name
     for name in ("flash_fwd_d512", "conv3x3"):
-        assert meta[name][-1] == mod.PATHS
+        assert meta[name][-1] == (*mod.PATHS, "units")
 
 
 def test_chip_smoke_fused_backward_record_names_both_tpu_kernels():
     """The one ``flash_bwd`` row stands for B6 and B7: its ``replaces``
     names ``_dkdv_kernel`` and ``_dq_kernel`` at their lines, and its
-    launches are read from the train path."""
+    launches are read from the train path, then from the measurement
+    tools' (the units phase)."""
     meta = _chip_smoke().KERNEL_META
     assert not {"flash_bwd_dkdv", "flash_bwd_dq"} & set(meta)
     source, replaces, key, _, phase = meta["flash_bwd"]
     assert source == "diffuman4d_torch/csrc/flash_attn_bwd.cu" and key == "flash_bwd"
-    assert phase == "train"
+    assert phase == ("train", "units")
     path = ROOT / "diffuman4d_tpu" / "ops" / "flash_backward.py"
     lines = path.read_text().splitlines()
     for kernel in ("_dkdv_kernel", "_dq_kernel"):

@@ -17,7 +17,10 @@ diffusers checkpoint, imports the attention tuner and routes its hot shapes
 through the committed dispatch table, imports the forward benchmark, the
 port's bench and its two training scripts, the multi-device modules
 (``parallel/``, ``ops/context_parallel.py``, the dry run), the tensor-parallel
-placement, the preprocessing stages (a visual hull carved on the CPU), and
+placement, the preprocessing stages (a visual hull carved on the CPU), the
+measurement and demo_4d tools (``profile_*``, ``attn_ceiling``,
+``bench_flash_backward``, ``show_schedule``, ``probe_temporal_mem``,
+``temporal_wave_proof``, ``demo4d_slice`` / ``_chain`` / ``_report``), and
 finally checks that no module of those packages or of ``diffuman4d_tpu``
 was loaded."""
 
@@ -222,6 +225,15 @@ SCRIPT = textwrap.dedent("""
                                          bounds=(-1, 1, -1, 1, -1, 1), voxel_size=0.1,
                                          device="cpu")
     assert len(hull) > 0
+    # the measurement and demo_4d tools, and their shared frame
+    from diffuman4d_torch import (  # noqa: F401
+        attn_ceiling, bench_flash_backward, demo4d_chain, demo4d_report, demo4d_slice,
+        probe_temporal_mem, profile_unet_units, profile_units, profile_vae, profile_vae_conv,
+        profile_window, show_schedule, temporal_wave_proof)
+    from diffuman4d_torch.utils import units  # noqa: F401
+
+    assert probe_temporal_mem.schedule("temporal", 8)["chunk"] == 5
+    assert profile_units.plan("tiny") and show_schedule.main(["--device", "cpu"]) == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
                                            "safetensors", "diffuman4d_tpu")
