@@ -19,11 +19,15 @@
 // P and dS are rounded to bf16 before their products and every product
 // accumulates in fp32.
 //
-// What bounds it: five products of 2 B H Sq Sk 64 FLOPs each against
-// O(B H S 64) bytes: the tensor cores, the exp2 / elementwise chain between
-// the products, and the traffic of the fp32 dQ partials (one 64 x 64 tile
-// per query block and key block, mostly in L2). Design (FlashAttention-3's
-// backward, in its deterministic mode):
+// What bounds it on the H100: five products of 2 B H Sq Sk 64 FLOPs each
+// against O(B H S 64) bytes, so the tensor cores (989 TFLOP/s: 1,280 clocks
+// of products per 64 x 128 tile of queries x keys on one SM). Between the
+// products each consumer warpgroup runs the exp2 / dS chain of its 64 x 64
+// half (4,096 exp2 at 16 a clock per SM), stores bf16(dS^T) for the dQ
+// product and hands fp32 dQ partials (one 64 x 64 tile per query block and
+// key block) on to be added in L2 in key-block order.
+//
+// Design (FlashAttention-3's backward, in its deterministic mode):
 //   * One block owns BK = 128 keys of one (batch, head): warpgroup 0
 //     produces, warpgroups 1 and 2 consume 64 keys each. K and V arrive once
 //     by TMA; dK and dV stay in fp32 registers for the block's life. The
@@ -32,36 +36,66 @@
 //     with full / empty mbarriers. Rows past a batch's S arrive as zeros
 //     (the (64, H, S, B) tensor maps); queries past Sq get L2 = +1e30 and
 //     delta = 0, keys past Sk get P = 0, so both contribute nothing.
-//   * Five wgmma products per query block and consumer warpgroup, on the
-//     transposed scores (keys as rows): S^T = K Qs^T and dP^T = V dO^T (both
-//     operands from shared memory, K-major); dV += P^T dO and
-//     dK += dS^T Qs with P^T and dS^T packed to bf16 in registers (the
-//     accumulator layout is the register A-fragment layout) and dO, Qs as
-//     MN-major B operands; the consumers store bf16(dS^T) to shared memory
-//     (128 key rows of 64 queries, 128-byte swizzle, two buffers), and
-//     dQ_partial = dS K (64 x 64, 128 keys deep) reads it back as an
-//     MN-major A operand with K as an MN-major B. The two warpgroups take
-//     the dQ product of alternate query blocks.
+//   * Five wgmma products per query block, on the transposed scores (keys as
+//     rows): S^T = K Qs^T and dP^T = V dO^T (both operands K-major in shared
+//     memory); dV += P^T dO and dK += dS^T Qs with P^T and dS^T packed to
+//     bf16 in registers (the accumulator layout is the A-fragment layout) and
+//     dO, Qs MN-major; and dQ_partial = dS K (64 x 64, 128 keys deep) from
+//     bf16(dS^T), which both consumers store to shared memory (128 key rows
+//     of 64 queries, 128-byte swizzle), read back as an MN-major A operand
+//     with K MN-major.
+//   * The consumers do not meet at a barrier every query block (the earlier
+//     form did, so both ran their exp2 chains at once while the tensor cores
+//     idled). Consumer w makes the dQ partial of the query blocks m with
+//     m % 2 == w. dS^T goes through a ring of NDS buffers: both consumers
+//     arrive on ds_full[m % NDS] once their half is stored, the owner arrives
+//     on ds_empty once its dQ product has read the buffer, and only the
+//     other consumer waits on that before it stores again. The owner issues
+//     block m's dQ product one query block later, after its own dV / dK of
+//     block m + 1, so the other half is almost always there: the two
+//     warpgroups drift apart and one's chain runs under the other's products.
+//   * Within a warpgroup every product is awaited before the loop's back
+//     edge (none in flight across it: ptxas would serialise the pipeline,
+//     note C7514), no wgmma input register is written while it is in flight
+//     (C7513), and the dQ product sits in a branch of its own behind its own
+//     wgmma fence, with its wait and the hand-off: issued in the commit group
+//     of dV / dK, ptxas inserted an arrive on that divergent path and
+//     serialised every product (note C7520).
+//   * Registers: the producer warpgroup keeps 40 (at 24 its warps spilled)
+//     and the consumers take 232: no spill.
 //   * Deterministic dQ: dq_accum (B H, Sq, 64) fp32 and one semaphore per
 //     (batch, head, query block) in global memory. Blocks take their (head,
 //     key block) tile from a counter (zeroed per call with the semaphores)
 //     in the order they start, key block fastest, so key block n - 1's
 //     block is resident or done when key block n's block waits on it. The
-//     consumer warpgroup that made a dQ partial puts it in its fp32 buffer
-//     in shared memory; the producer warpgroup's second warp (the dQ
-//     writer) waits until the semaphore of that query block reads n, adds
-//     the buffer to the dq_accum tile with one bulk reduce-add (key block 0
-//     stores it), waits for the add to complete and sets the semaphore to
-//     n + 1. So every element of dQ gets its fp32 terms in key-block order
-//     and the result is bit-repeatable, while the consumers never wait on
-//     global memory. A second kernel writes dQ = bf16(dq_accum / sqrt(d))
+//     owner stores its partial into one of its two staging buffers in the
+//     layout of the dq_accum tensor map's box (two 64 x 32 fp32 halves with
+//     the 128-byte swizzle: each float2 store of a warp takes the two
+//     wavefronts its 256 bytes need, where the earlier row-major tile took
+//     eight); the producer warpgroup's second warp (the dQ writer) waits
+//     until the semaphore of that query block reads n, adds the tile to
+//     dq_accum with two TMA tensor reduce-adds (key block 0 stores it; rows
+//     past Sq are clipped by the map), waits for them to complete and sets
+//     the semaphore to n + 1. So every element of dQ gets its fp32 terms in
+//     key-block order: the result is bit-repeatable, and it is the bits of
+//     the earlier form. A second kernel writes dQ = bf16(dq_accum / sqrt(d))
 //     in (B, Sq, H, 64).
-//   * Each consumer waits on every product before it touches the registers
-//     a product reads or writes (no wgmma input register is rewritten while
-//     it is in flight: ptxas would serialise the pipeline, note C7513). A
-//     form that let block m - 1's dV / dK / dQ products run behind block
-//     m's S^T and dP^T drew ptxas's C7514 note (serialised) and more spills,
-//     and was slower on the H100.
+//
+// Tried on the H100 and dropped (ms at B1 S49,152 H10, turns within one
+// call; this form 35.0-38.2 ms, the earlier lockstep form 43.4-43.9): K and
+// V as register A operands of S^T and dP^T (loaded once with ldmatrix; off
+// the shared-memory limit, but 32 more registers: 24-92 bytes spilled at
+// 232, 37.1-57.2 ms); K alone in registers (36.7-39.6); the two consumers
+// in ping-pong on named barriers (37.4-42.5); the dQ hand-off under the next
+// block's S^T / dP^T (42.4, note C7518); the next block's S^T / dP^T issued
+// behind dV / dK (108 bytes spilled, 50.6-53.0); S^T / dP^T in two halves of
+// 32 queries, each half's chain under the other's products (39.6-45.9: the
+// chain itself grew); the bf16 packs on the integer pipe (38.3-45.1); one
+// elected arrival per warp, masking only a block that ends past Sk, two
+// stages, two dS^T buffers (no change beyond the calls' spread). In all of
+// them each consumer spends ~3,000 clocks per query block (a clock64 trace
+// of one block): products ~1,150, the exp2 / dS chain and the dS^T store
+// ~1,100, barrier waits and the dQ hand-off ~700.
 
 #include "hopper_common.cuh"
 
@@ -72,29 +106,34 @@ constexpr int ROW = HD * 2;  // bytes of one token row: one 128-byte swizzle row
 constexpr int BQ = 64;       // queries per streamed block (BWD_BLOCK_Q of ops/flash_backward.py)
 constexpr int BK = 128;      // keys per block: two consumer warpgroups of 64
 constexpr int STAGES = 3;    // depth of the Qs / dO ring
+constexpr int NDS = 4;       // dS^T buffers (owner of buffer b: consumer b % 2)
+constexpr int NDQ = 4;       // dQ staging buffers, two per consumer (owner of buffer x: x % 2)
 constexpr int NCONS = 256;   // consumer threads
+constexpr int PROD_REGS = 40, CONS_REGS = 232;  // 40 + 2 x 232 <= 512 (65,536 / 128)
 constexpr float LN2 = 0.6931471805599453f;
 // Error code (not a cudaError_t) returned when the driver refuses a TMA map.
 constexpr int ERR_TENSOR_MAP = 1000;
 
 // Shared memory of one block; every tile starts on a 1024-byte boundary.
 struct Layout {
-  static constexpr int TILE_Q = BQ * ROW;  // one Qs or dO block
-  static constexpr int TILE_K = BK * ROW;  // K, V, or one dS^T buffer (BK keys x BQ queries)
+  static constexpr int TILE_Q = BQ * ROW;      // one Qs or dO block
+  static constexpr int TILE_K = BK * ROW;      // K, V, or one dS^T buffer (BK keys x BQ queries)
+  static constexpr int TILE_DQ = BQ * HD * 4;  // one fp32 dQ partial: two 64 x 32 halves
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = TILE_K;
-  static constexpr int DS_OFF = 2 * TILE_K;  // two dS^T buffers
-  static constexpr int Q_OFF = 4 * TILE_K;
+  static constexpr int DS_OFF = 2 * TILE_K;
+  static constexpr int Q_OFF = DS_OFF + NDS * TILE_K;
   static constexpr int DO_OFF = Q_OFF + STAGES * TILE_Q;
-  static constexpr int TILE_DQ = BQ * HD * 4;  // one fp32 dQ partial, row-major
-  static constexpr int DQ_OFF = DO_OFF + STAGES * TILE_Q;  // one per consumer warpgroup
-  static constexpr int VEC_OFF = DQ_OFF + 2 * TILE_DQ;     // per stage: L2[BQ], delta[BQ]
+  static constexpr int DQ_OFF = DO_OFF + STAGES * TILE_Q;
+  static constexpr int VEC_OFF = DQ_OFF + NDQ * TILE_DQ;  // per stage: L2[BQ], delta[BQ]
   static constexpr int BAR_OFF = VEC_OFF + STAGES * 2 * BQ * 4;
-  // K/V full; per stage full, empty; per dQ buffer full, empty; then the
-  // block's tile index
-  static constexpr int TILE_IDX_OFF = BAR_OFF + (1 + 2 * STAGES + 4) * 8;
+  // K/V full; per stage full, empty; per dS^T buffer full, empty; per dQ
+  // buffer full, empty; then the block's tile index
+  static constexpr int NBAR = 1 + 2 * STAGES + 2 * NDS + 2 * NDQ;
+  static constexpr int TILE_IDX_OFF = BAR_OFF + NBAR * 8;
   static constexpr int SMEM = TILE_IDX_OFF + 16 + 1024;  // + alignment slack
 };
+static_assert(Layout::SMEM <= 232448, "more shared memory than a block may have");
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -107,23 +146,29 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 }
 
 // Order global accesses of the generic proxy (the semaphores) with those of
-// the async proxy (the bulk copies).
+// the async proxy (the TMA stores and reduce-adds).
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// Bulk copy (TMA, no tensor map) of `bytes` from shared to global memory:
-// a store, or an fp32 add into what global memory holds.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
+// TMA store of a shared-memory tile to the box at (c0, c1, c2) of a 3-D
+// tensor map, or an fp32 add of the tile into what global memory holds.
+// Parts of the box outside the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+               "r"(c2)
                : "memory");
 }
 
-__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, int bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::
-                   "l"(dst), "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // Wait until this thread's bulk copies have completed (their writes made).
@@ -176,7 +221,6 @@ __device__ __forceinline__ void wgmma_ss_tt_first(float (&d)[32], uint64_t da, u
       : "l"(da), "l"(db), "r"(0));
 }
 
-
 // D (64 x 64) = A (64 x 64) B^T with A, B K-major 64-wide tiles in shared memory
 __device__ __forceinline__ void mma_kmajor(float (&d)[32], uint64_t da, uint64_t db) {
   wgmma_ss_first(d, da, db);
@@ -216,22 +260,79 @@ __device__ __forceinline__ void store_frag(unsigned char* tile, const uint32_t (
   }
 }
 
+// Store a 64 x 64 fp32 accumulator (rows 16 warp + lane / 4 (+ 8), columns
+// 8j + 2tq (+ 1)) as the staging tile of the dq_accum map: two halves of 64
+// rows x 32 columns (128 bytes), each with the 128-byte swizzle. One store
+// instruction of a warp covers 8 rows x 32 bytes: with the swizzle, two
+// wavefronts.
+__device__ __forceinline__ void store_dq_tile(unsigned char* tile, const float (&d)[32], int warp,
+                                              int lane) {
+  const int tq = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = 16 * warp + lane / 4 + 8 * r;
+      const int chunk = 2 * (j & 3) + (tq >> 1);
+      *reinterpret_cast<float2*>(tile + (j >> 2) * (BQ * 128) + q * 128 +
+                                 ((chunk ^ (q & 7)) << 4) + (tq & 1) * 8) =
+          make_float2(d[4 * j + 2 * r], d[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// P^T and dS^T of one query block from S^T and dP^T; register 4j + 2r + e is
+// row (key) r0 + 8r, column (query) 8j + 2tq + e; keys past Sk (key_in
+// false) get P = 0.
+__device__ __forceinline__ void p_and_ds(const float (&s)[32], const float (&dp)[32],
+                                         const float* l2s, const float* dls, int tq,
+                                         const bool (&key_in)[2], uint32_t (&pt)[16],
+                                         uint32_t (&dst)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(l2s + 8 * j + 2 * tq);
+    const float2 d = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * tq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 4 * j + 2 * r;
+      const float p0 = key_in[r] ? ex2(s[i] - l.x) : 0.f;
+      const float p1 = key_in[r] ? ex2(s[i + 1] - l.y) : 0.f;
+      pt[2 * j + r] = pack_bf16(p0, p1);
+      dst[2 * j + r] = pack_bf16(p0 * (dp[i] - d.x), p1 * (dp[i + 1] - d.y));
+    }
+  }
+}
+
+// Hand the dQ partial of query block mq (this consumer's, in dq) to the dQ
+// writer through staging buffer mq % NDQ, once the writer has emptied it.
+__device__ __forceinline__ void hand_dq(unsigned char* staging, uint64_t* dq_full,
+                                        uint64_t* dq_empty, const float (&dq)[32], int mq,
+                                        int warp, int lane) {
+  const int x = mq % NDQ;
+  mbar_wait(dq_empty + x, ((mq / NDQ) & 1) ^ 1);  // the first round passes at once
+  store_dq_tile(staging + x * Layout::TILE_DQ, dq, warp, lane);
+  fence_proxy_async();
+  mbar_arrive(dq_full + x);
+}
+
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_do,
                            const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ l2,
-                           const float* __restrict__ delta, float* __restrict__ dq_accum,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv, int* __restrict__ sems,
-                           int H, int Sq, int Sk) {
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ l2,
+                           const float* __restrict__ delta, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int* __restrict__ sems, int H, int Sq, int Sk) {
   using L = Layout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
-  uint64_t* dq_full = empty + STAGES;
-  uint64_t* dq_empty = dq_full + 2;
+  uint64_t* ds_full = empty + STAGES;
+  uint64_t* ds_empty = ds_full + NDS;
+  uint64_t* dq_full = ds_empty + NDS;
+  uint64_t* dq_empty = dq_full + NDQ;
   int* tile_idx = reinterpret_cast<int*>(sm + L::TILE_IDX_OFF);
   float* vec = reinterpret_cast<float*>(sm + L::VEC_OFF);
 
@@ -246,9 +347,13 @@ __global__ void __launch_bounds__(384, 1)
       mbar_init(full + s, 1 + 32);  // the TMA bytes' arrival + the producer warp's L2 / delta
       mbar_init(empty + s, NCONS);
     }
-    for (int w = 0; w < 2; ++w) {
-      mbar_init(dq_full + w, 128);
-      mbar_init(dq_empty + w, 1);
+    for (int i = 0; i < NDS; ++i) {
+      mbar_init(ds_full + i, NCONS);  // both consumers' halves
+      mbar_init(ds_empty + i, 128);   // the owner's dQ product has read it
+    }
+    for (int x = 0; x < NDQ; ++x) {
+      mbar_init(dq_full + x, 128);
+      mbar_init(dq_empty + x, 1);
     }
     mbar_fence_init();
   }
@@ -259,7 +364,7 @@ __global__ void __launch_bounds__(384, 1)
 
   if (wg == 0) {
     // producer: lane 0 of warp 0 issues the copies, its warp loads L2 / delta
-    warpgroup_reg_dealloc<24>();
+    warpgroup_reg_dealloc<PROD_REGS>();
     if (tid < 32) {
       const int lane = tid;
       if (lane == 0) {
@@ -290,41 +395,40 @@ __global__ void __launch_bounds__(384, 1)
       // has added its own (key block 0 stores it), then hands the tile on
       const int lane = tid - 32;
       int* sem = sems + 1 + (long)bh * nq;
-      float* accb = dq_accum + (long)bh * Sq * HD;
       for (int m = 0; m < nq; ++m) {
-        const int w = m & 1;  // the consumer warpgroup that made this partial
-        mbar_wait(dq_full + w, (m >> 1) & 1);
+        const int x = m % NDQ;  // made by consumer m % 2
+        mbar_wait(dq_full + x, (m / NDQ) & 1);
         if (lane == 0) {
-          float* dst = accb + (long)m * BQ * HD;
-          const void* src = sm + L::DQ_OFF + w * L::TILE_DQ;
-          const int bytes = min(BQ, Sq - m * BQ) * HD * 4;  // rows past Sq are not stored
+          const unsigned char* src = sm + L::DQ_OFF + x * L::TILE_DQ;
           if (n > 0) {
             while (ld_acquire(sem + m) < n) {
             }
             fence_proxy_async_global();
-            bulk_reduce_add_f32(dst, src, bytes);
+            tma_reduce_add_3d(&tm_dq, src, 0, m * BQ, bh);
+            tma_reduce_add_3d(&tm_dq, src + BQ * 128, 32, m * BQ, bh);
           } else {
-            bulk_store(dst, src, bytes);
+            tma_store_3d(&tm_dq, src, 0, m * BQ, bh);
+            tma_store_3d(&tm_dq, src + BQ * 128, 32, m * BQ, bh);
           }
           bulk_commit_and_wait();
           fence_proxy_async_global();
           st_release(sem + m, n + 1);
-          mbar_arrive(dq_empty + w);
+          mbar_arrive(dq_empty + x);
         }
         __syncwarp();
       }
     }
   } else {
     // consumers: 64 keys per warpgroup
-    warpgroup_reg_alloc<240>();
+    warpgroup_reg_alloc<CONS_REGS>();
     const int cw = wg - 1, t = tid % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
     const uint64_t desc_kw = desc_sw128(sm + L::K_OFF + cw * 64 * ROW);
     const uint64_t desc_vw = desc_sw128(sm + L::V_OFF + cw * 64 * ROW);
     const uint64_t desc_k = desc_sw128(sm + L::K_OFF);  // all BK keys: B of dQ
+    unsigned char* staging = sm + L::DQ_OFF;
     // this thread's accumulator rows: keys r0 and r0 + 8 of the block
     const int r0 = cw * 64 + warp * 16 + lane / 4;
     const bool key_in[2] = {k0 + r0 < Sk, k0 + r0 + 8 < Sk};
-    float* dq_buf = reinterpret_cast<float*>(sm + L::DQ_OFF + cw * L::TILE_DQ);
 
     float dk_acc[32], dv_acc[32], s[32], dp[32], dq[32];
     uint32_t pt[16], dst[16];
@@ -336,9 +440,6 @@ __global__ void __launch_bounds__(384, 1)
       const int st = m % STAGES;
       const uint64_t desc_q = desc_sw128(sm + L::Q_OFF + st * L::TILE_Q);
       const uint64_t desc_do = desc_sw128(sm + L::DO_OFF + st * L::TILE_Q);
-      const float* l2s = vec + st * 2 * BQ;
-      const float* dls = l2s + BQ;
-      unsigned char* ds_buf = sm + L::DS_OFF + (m & 1) * L::TILE_K;
       mbar_wait(full + st, (m / STAGES) & 1);
 
       // S^T = K Qs^T and dP^T = V dO^T: rows are keys, columns queries
@@ -349,55 +450,56 @@ __global__ void __launch_bounds__(384, 1)
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      // P^T and dS^T; register 4j + 2r + e is row r0 + 8r, query 8j + 2tq + e
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 l = *reinterpret_cast<const float2*>(l2s + 8 * j + 2 * tq);
-        const float2 d = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * tq);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = 4 * j + 2 * r;
-          const float p0 = key_in[r] ? ex2(s[i] - l.x) : 0.f;
-          const float p1 = key_in[r] ? ex2(s[i + 1] - l.y) : 0.f;
-          pt[2 * j + r] = pack_bf16(p0, p1);
-          dst[2 * j + r] = pack_bf16(p0 * (dp[i] - d.x), p1 * (dp[i + 1] - d.y));
-        }
-      }
-      store_frag(ds_buf, dst, r0, tq);
-      fence_proxy_async();
+      const float* l2s = vec + st * 2 * BQ;
+      p_and_ds(s, dp, l2s, l2s + BQ, tq, key_in, pt, dst);
 
-      // dV += P^T dO, dK += dS^T Qs
+      // this warpgroup's half of bf16(dS^T) into the ring; the owner's dQ
+      // product of the buffer's last block must have read it
+      const int bd = m % NDS;
+      if ((m & 1) != cw) mbar_wait(ds_empty + bd, ((m / NDS) & 1) ^ 1);
+      store_frag(sm + L::DS_OFF + bd * L::TILE_K, dst, r0, tq);
+      fence_proxy_async();
+      mbar_arrive(ds_full + bd);
+
+      // dV += P^T dO, dK += dS^T Qs; then block m - 1's dQ if it is ours
+      const bool mine = m >= 1 && ((m - 1) & 1) == cw;
+      const int bq = (m + NDS - 1) % NDS;  // block m - 1's dS^T buffer
+      if (mine) mbar_wait(ds_full + bq, ((m - 1) / NDS) & 1);  // both halves stored
       wgmma_fence();
       mma_rs(dv_acc, pt, desc_do);
       mma_rs(dk_acc, dst, desc_q);
       wgmma_commit();
-      named_bar_sync(1, NCONS);  // both warpgroups' halves of dS^T are stored
-      const bool mine = (m & 1) == cw;
       if (mine) {
-        // dQ_partial = dS K over the block's BK keys
         wgmma_fence();
-        mma_mnmajor(dq, desc_sw128(ds_buf), desc_k);
+        mma_mnmajor(dq, desc_sw128(sm + L::DS_OFF + bq * L::TILE_K), desc_k);
         wgmma_commit();
-      }
-      wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
-      fence_regs(pt);
-      fence_regs(dst);
-      mbar_arrive(empty + st);
-      if (mine) {
-        // hand the partial to the dQ writer through this warpgroup's buffer
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pt);
+        fence_regs(dst);
         fence_regs(dq);
-        mbar_wait(dq_empty + cw, ((m >> 1) & 1) ^ 1);  // the first round passes at once
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-            *reinterpret_cast<float2*>(dq_buf + (warp * 16 + lane / 4 + 8 * r) * HD + 8 * j +
-                                       2 * tq) = make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-        fence_proxy_async();
-        mbar_arrive(dq_full + cw);
+        mbar_arrive(empty + st);
+        mbar_arrive(ds_empty + bq);
+        hand_dq(staging, dq_full, dq_empty, dq, m - 1, warp, lane);
+      } else {
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pt);
+        fence_regs(dst);
+        mbar_arrive(empty + st);
       }
+    }
+    if (((nq - 1) & 1) == cw) {  // the last block's dQ
+      const int bq = (nq - 1) % NDS;
+      mbar_wait(ds_full + bq, ((nq - 1) / NDS) & 1);
+      wgmma_fence();
+      mma_mnmajor(dq, desc_sw128(sm + L::DS_OFF + bq * L::TILE_K), desc_k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      hand_dq(staging, dq_full, dq_empty, dq, nq - 1, warp, lane);
     }
 
     const long rs = (long)H * HD;  // elements between consecutive tokens
@@ -438,23 +540,27 @@ __global__ void dq_convert_kernel(const float* __restrict__ acc, bf16* __restric
   }
 }
 
-// The five products of the kernel above on one tile, for the card tests:
-// TMA loads of Qs, dO (64 rows each), K and V (128 rows each), then
-// (1) S^T = K[:64] Qs^T, (2) dP^T = V[:64] dO^T (shared-memory operands,
-// K-major), (3) bf16(S^T) dO and (4) bf16(dP^T) Qs (A from registers, B
-// MN-major), and (5) T^T K, where T (128 x 64) stacks bf16(S^T) over
-// bf16(dP^T), stored to shared memory by the threads and read back as an
-// MN-major A operand. out: five 64 x 64 fp32 matrices.
+// The five products of the kernel above on one tile, in the kernel's forms,
+// for the card tests: TMA loads of Qs, dO (64 rows each), K and V (128 rows
+// each), then (1) S^T = K[:64] Qs^T, (2) dP^T = V[:64] dO^T (shared-memory
+// operands, K-major), (3) bf16(S^T) dO and (4) bf16(dP^T) Qs (A from
+// registers, B MN-major), and (5) T^T K, where T (128 x 64) stacks bf16(S^T)
+// over bf16(dP^T), stored to shared memory by the threads and read back as
+// an MN-major A operand, then written out as the kernel writes a dQ partial:
+// through the swizzled staging tile and two TMA tensor stores of its map.
+// out: five 64 x 64 fp32 matrices.
 __global__ void __launch_bounds__(128)
     bwd_probe_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_do,
                      const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, float* __restrict__ out) {
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_out5, float* __restrict__ out) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   unsigned char *sq = sm, *sdo = sm + BQ * ROW, *sk = sdo + BQ * ROW, *sv = sk + BK * ROW;
   unsigned char* sds = sv + BK * ROW;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sds + BK * ROW);
+  unsigned char* sdq = sds + BK * ROW;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sdq + Layout::TILE_DQ);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, tq = lane % 4;
   if (tid == 0) {
     mbar_init(bar, 1);
@@ -508,11 +614,33 @@ __global__ void __launch_bounds__(128)
   fence_regs(a5);
   put(2, a3);
   put(3, a4);
-  put(4, a5);
+  store_dq_tile(sdq, a5, warp, lane);
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_3d(&tm_out5, sdq, 0, 0, 0);
+    tma_store_3d(&tm_out5, sdq + BQ * 128, 32, 0, 0);
+    bulk_commit_and_wait();
+  }
 }
 
 bool bad_sizes(int B, int H, int Sq, int Sk) {
   return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535;
+}
+
+// TMA map of a contiguous (BH, Sq, 64) fp32 tensor as the 3-D array (64, Sq,
+// BH), innermost first, with boxes of 32 columns x 64 rows of one (batch,
+// head): 128-byte rows, 128-byte swizzle. Rows past Sq are out of bounds.
+bool encode_dq_accum(CUtensorMap* map, void* base, int BH, int Sq) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {HD, (cuuint64_t)Sq, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {HD * 4, (cuuint64_t)Sq * HD * 4};
+  const cuuint32_t box[3] = {32, BQ, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -528,9 +656,10 @@ extern "C" int flash_attn_bwd_fused(const void* qs, const void* k, const void* v
                                     int Sq, int Sk, void* stream) {
   if (bad_sizes(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap tq, tdo, tk, tv;
+  CUtensorMap tq, tdo, tk, tv, tdq;
   if (!encode_bshd64(&tq, qs, B, Sq, H, BQ) || !encode_bshd64(&tdo, dout, B, Sq, H, BQ) ||
-      !encode_bshd64(&tk, k, B, Sk, H, BK) || !encode_bshd64(&tv, v, B, Sk, H, BK))
+      !encode_bshd64(&tk, k, B, Sk, H, BK) || !encode_bshd64(&tv, v, B, Sk, H, BK) ||
+      !encode_dq_accum(&tdq, dq_accum, B * H, Sq))
     return ERR_TENSOR_MAP;
   const long nq = (Sq + BQ - 1) / BQ, nk = (Sk + BK - 1) / BK;
   cudaError_t err = cudaMemsetAsync(sems, 0, (1 + (size_t)B * H * nq) * sizeof(int), st);
@@ -539,9 +668,8 @@ extern "C" int flash_attn_bwd_fused(const void* qs, const void* k, const void* v
                              Layout::SMEM);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_fused_kernel<<<(unsigned)(B * H * nk), 384, Layout::SMEM, st>>>(
-      tq, tdo, tk, tv, static_cast<const float*>(l2), static_cast<const float*>(delta),
-      static_cast<float*>(dq_accum), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<int*>(sems), H, Sq, Sk);
+      tq, tdo, tk, tv, tdq, static_cast<const float*>(l2), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<int*>(sems), H, Sq, Sk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long n8 = (long)B * H * Sq * HD / 8;
@@ -555,15 +683,16 @@ extern "C" int flash_attn_bwd_fused(const void* qs, const void* k, const void* v
 // (1, 128, 1, 64) bf16; out (5, 64, 64) fp32 (see bwd_probe_kernel).
 extern "C" int flash_attn_bwd_probe(const void* qs, const void* k, const void* v,
                                     const void* dout, void* out, void* stream) {
-  CUtensorMap tq, tdo, tk, tv;
+  CUtensorMap tq, tdo, tk, tv, t5;
   if (!encode_bshd64(&tq, qs, 1, BQ, 1, BQ) || !encode_bshd64(&tdo, dout, 1, BQ, 1, BQ) ||
-      !encode_bshd64(&tk, k, 1, BK, 1, BK) || !encode_bshd64(&tv, v, 1, BK, 1, BK))
+      !encode_bshd64(&tk, k, 1, BK, 1, BK) || !encode_bshd64(&tv, v, 1, BK, 1, BK) ||
+      !encode_dq_accum(&t5, static_cast<float*>(out) + 4 * BQ * HD, 1, BQ))
     return ERR_TENSOR_MAP;
-  const int smem = (2 * BQ + 3 * BK) * ROW + 8 + 1024;
+  const int smem = (2 * BQ + 3 * BK) * ROW + Layout::TILE_DQ + 8 + 1024;
   cudaError_t err =
       cudaFuncSetAttribute(bwd_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(tq, tdo, tk, tv,
-                                                                        static_cast<float*>(out));
+  bwd_probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tdo, tk, tv, t5, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -120,6 +120,25 @@ def sliding_from(cfg: SamplerConfig) -> SlidingConfig:
     )
 
 
+def check_attention_dtype(device: str, dtype: str, attn_implementation: str) -> None:
+    """Refuse a compute dtype the card's attention kernels cannot take,
+    before anything is loaded (``ROADMAP.md`` C.24): on a CUDA device,
+    attention ``auto`` or ``pallas`` runs the port's wgmma kernels, which
+    take bf16 only. The JAX package's Pallas kernels take any dtype; here
+    ``wgmma`` has no fp32 product, and a silent cast to bf16 would not be the
+    fp32 run that was asked for. ``device`` is a device string ("cuda",
+    "cuda:0", "cpu"); ``dtype`` and ``attn_implementation`` are the
+    ``ModelConfig`` fields."""
+    if torch.device(device).type != "cuda" or dtype == "bf16":
+        return
+    if ATTN_IMPLEMENTATIONS.get(attn_implementation) in ("auto", "pallas"):
+        raise ValueError(
+            f"model.dtype={dtype} with model.attn_implementation={attn_implementation} on "
+            f"{device}: the port's attention kernels take bf16 only (wgmma has no {dtype} "
+            f"product); set model.dtype=bf16, or model.attn_implementation=math for small "
+            f"shapes")
+
+
 def load_pipeline(
     model_cfg: ModelConfig,
     sampler_cfg: SamplerConfig,
@@ -134,11 +153,14 @@ def load_pipeline(
     Weights are stored at ``model_cfg.param_dtype`` and computed at
     ``model_cfg.dtype``, as in the JAX package: they are rounded to the
     one and held at the other, which gives the numbers of flax's cast at
-    use. Random weights at fp32 compute stay fp32."""
+    use. Random weights at fp32 compute stay fp32. On a CUDA device with
+    kernel attention, a dtype other than bf16 is refused before anything is
+    loaded (:func:`check_attention_dtype`)."""
     dtype = DTYPES[model_cfg.dtype]
     if model_cfg.attn_implementation not in ATTN_IMPLEMENTATIONS:
         raise ValueError(f"model.attn_implementation={model_cfg.attn_implementation!r}; "
                          f"one of {sorted(ATTN_IMPLEMENTATIONS)}")
+    check_attention_dtype(str(device), model_cfg.dtype, model_cfg.attn_implementation)
     attn = ATTN_IMPLEMENTATIONS[model_cfg.attn_implementation]
     sliding = sliding_from(sampler_cfg)
     model_dir = osp.expandvars(model_cfg.model_dir)

@@ -415,7 +415,9 @@ def test_fused_backward_probe_products_match_torch(bwd_probe, product):
     dP^T = V dO^T (K-major shared-memory operands), bf16(S^T) dO and
     bf16(dP^T) Qs (A from registers, B MN-major), and T^T K with T the
     128 x 64 stack of both, stored by the threads with the 128-byte swizzle
-    and read back as an MN-major A operand across 8 swizzle atoms."""
+    and read back as an MN-major A operand across 8 swizzle atoms, then
+    written out as a dQ partial is: through the swizzled fp32 staging tile
+    and two TMA tensor stores."""
     out, qs, k, v, dout = bwd_probe
     bf = out.bfloat16().float()  # the kernel's own products, rounded as it rounds them
     want = {"s_t": k[:64] @ qs.T, "dp_t": v[:64] @ dout.T, "dv": bf[0] @ dout,
