@@ -140,9 +140,10 @@ def _run(cfg: RunConfig, device) -> None:
     from diffuman4d_torch.parallel import distributed as pdist
     from diffuman4d_torch.sampling.loader import load_pipeline
     from diffuman4d_torch.sampling.runner import SamplingRunner
-    from diffuman4d_torch.utils.tracing import phase, report
+    from diffuman4d_torch.utils.tracing import counters, phase, report
 
-    report(reset=True)  # phases.json holds this run only
+    report(reset=True)  # phases.json and counters.json hold this run only
+    counters(reset=True)
     with phase("cli/load_pipeline"):
         pipeline = load_pipeline(cfg.model, cfg.sampler, cfg.data, device=device)
     with phase("cli/build_sampler"):  # grid noise, and the state file if one is there

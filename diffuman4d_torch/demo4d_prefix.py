@@ -19,7 +19,8 @@ seed 0, as in the CLI.
     python -m diffuman4d_torch.demo4d_prefix --report           # progress + export
     python -m diffuman4d_torch.demo4d_prefix --task-budget 2 sampler.tem_label_range=[0,12,1]
 
-Each call writes ``phases.json`` (this call's phases) into the output
+Each call writes ``phases.json`` (this call's phases) and ``counters.json``
+(its counters: tasks, latent steps, cache hits and misses) into the output
 directory and prints one JSON line: the resume point, the tasks run, the
 seconds they took and the peak device memory. ``--report`` runs no task and
 exports what the output directory holds so far. The card is used unless
@@ -112,10 +113,11 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     from diffuman4d_torch import cli
     from diffuman4d_torch.sampling.loader import load_pipeline
-    from diffuman4d_torch.utils.tracing import dump_report, phase, report
+    from diffuman4d_torch.utils.tracing import counters, dump_counters, dump_report, phase, report
 
     cfg = demo4d_config(args.scene, args.size, args.out, args.arch, args.device, args.overrides)
-    report(reset=True)  # phases.json holds this call only
+    report(reset=True)  # phases.json and counters.json hold this call only
+    counters(reset=True)
     t0 = time.perf_counter()
     if scene_missing(cfg):
         with phase("prefix/make_scene", sync=False):
@@ -162,6 +164,7 @@ def main(argv: list[str] | None = None) -> int:
     rep["phases"] = report()
     os.makedirs(args.out, exist_ok=True)
     dump_report(osp.join(args.out, "phases.json"))
+    dump_counters(osp.join(args.out, "counters.json"))
     print(json.dumps(rep), flush=True)
     return 0
 

@@ -48,6 +48,7 @@ import torch
 
 from diffuman4d_torch.ops import flash_attention as fa
 from diffuman4d_torch.ops.flash_backward import flash_attention_train
+from diffuman4d_torch.utils.tracing import ranged
 
 log = logging.getLogger(__name__)
 
@@ -146,6 +147,7 @@ def route(q_shape, k_shape) -> tuple[str, dict]:
     return DEFAULT_KERNEL[d], {}
 
 
+@ranged("op/attention")  # a profiler range, while one records
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, implementation: str = "auto"
 ) -> torch.Tensor:

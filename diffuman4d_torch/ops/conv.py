@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from diffuman4d_torch.ops import cuda_build
+from diffuman4d_torch.utils.tracing import ranged
 
 
 def conv3x3_ok(shape: tuple[int, ...], cout: int) -> bool:
@@ -79,6 +80,7 @@ def tap_major_weights(w: torch.Tensor) -> torch.Tensor:
     return w.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(cout, 9, cin).contiguous()
 
 
+@ranged("op/conv3x3")  # a profiler range, while one records
 def conv3x3(
     x: torch.Tensor,
     w: torch.Tensor,

@@ -6,7 +6,9 @@ root (the hash covers the sources, the shared headers and the flags, so an
 edited kernel is rebuilt) and loaded with ``ctypes``. Nothing is built at
 import time: the first wrapper call builds what it needs, and
 :func:`build` compiles several sources in parallel (one ``nvcc`` each).
-Every C entry point returns a ``cudaError_t``.
+Every C entry point returns a ``cudaError_t``. Builds and loads are the
+``setup/kernels`` phase (``utils/tracing.py``), counted as
+``kernels/compiled`` and ``kernels/loaded``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from diffuman4d_torch.utils.tracing import count, phase
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -68,6 +72,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
+@phase("setup/kernels", sync=False)
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every missing library of ``names``, all ``nvcc`` processes
     started together. Raises with the compiler's output on failure."""
@@ -90,6 +95,7 @@ def build(names=SOURCES) -> dict[str, Path]:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, out)
+        count("kernels/compiled")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: library_path(name) for name in names}
@@ -97,7 +103,11 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build([name])[name]))
+    path = build([name])[name]
+    with phase("setup/kernels", sync=False):
+        lib = ctypes.CDLL(str(path))
+    count("kernels/loaded")
+    return lib
 
 
 @functools.cache

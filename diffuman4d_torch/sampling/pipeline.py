@@ -12,13 +12,20 @@ decode (counterpart of ``diffuman4d_tpu/sampling/pipeline.py``).
   threshold: a task whose pose features for every row fit it gets them
   once; a larger task (demo_4d's 300-row temporal tasks) carries its uint8
   skeleton rows instead, and :meth:`sliding_denoise` computes the features
-  per window chunk for the chunk's rows.
+  per window chunk for the chunk's rows. Its parts are phases
+  (``utils/tracing.py``): ``cond/upload`` on the host clock (the host's
+  inputs and posterior noise copied to the device; pageable copies block),
+  ``cond/vae_encode``, ``cond/pose_encode`` and ``cond/plucker`` on the
+  card's. The caches count their lookups as ``cond/{pix,skel,pose}_cache_hit``
+  and ``..._miss``, by which ``*_cache_mb`` are sized.
 * :meth:`Diffuman4DPipeline.sliding_denoise` -- a Python loop over the
   precomputed window matrix in chunks of ``window_chunk`` windows; each
   window runs ``num_denoising_steps`` CFG denoising steps with the
   vectorized per-latent scheduler step. A multistep scheduler's per-latent
   history (``aux``) is gathered and scattered by the windows' rows beside
-  the latents.
+  the latents. Each window step is a ``denoise/window_step`` phase and each
+  streamed chunk's conditions a ``cond/chunk`` phase, both timed on the
+  card.
 * :meth:`Diffuman4DPipeline.decode` -- micro-batched VAE decode to uint8.
 * :meth:`Diffuman4DPipeline.enable_context_parallel` -- route each window
   step's UNet forward through ``parallel/cp_unet.py`` over a mesh's
@@ -66,6 +73,7 @@ from diffuman4d_torch.models.unet import UNetMultiviewCondition
 from diffuman4d_torch.models.vae import AutoencoderKL
 from diffuman4d_torch.schedulers.diffusion import Scheduler
 from diffuman4d_torch.utils.arrays import ByteLRU
+from diffuman4d_torch.utils.tracing import count, phase
 
 
 def _skel_u8(sk: np.ndarray) -> np.ndarray:
@@ -181,6 +189,11 @@ class Diffuman4DPipeline:
     def dtype(self) -> torch.dtype:
         return self.unet.dtype
 
+    @property
+    def _on_card(self) -> bool:
+        """The device phases are timed by CUDA events (else the host clock)."""
+        return self.device.type == "cuda"
+
     # -- randomness ----------------------------------------------------
     def init_noise(self, spa_ids: np.ndarray, tem_ids: np.ndarray, seed: int) -> torch.Tensor:
         """Grid-indexed initial noise: cell (s, t) always draws the same
@@ -253,8 +266,10 @@ class Diffuman4DPipeline:
         """Pose feature of a black skeleton, the CFG negative (computed once
         per cache generation)."""
         if self._neg_pose is None:
-            black = -torch.ones((1,) + tuple(skel_shape), dtype=self.dtype, device=self.device)
-            self._neg_pose = self._pose_from_skel(black)
+            with phase("cond/pose_encode", device=self._on_card):
+                black = -torch.ones((1,) + tuple(skel_shape), dtype=self.dtype,
+                                    device=self.device)
+                self._neg_pose = self._pose_from_skel(black)
         return self._neg_pose
 
     def _pose_feature_bytes(self) -> int:
@@ -271,9 +286,10 @@ class Diffuman4DPipeline:
         have = {labels[i]: self._pix_cache.value(labels[i])
                 for i in cond_rows if labels[i] in self._pix_cache}
         miss = [i for i in cond_rows if labels[i] not in have]
+        count("cond/pix_cache_hit", len(cond_rows) - len(miss))
+        count("cond/pix_cache_miss", len(miss))
         if miss:
-            z = self.encode_images(self._to_device(sample.pixel_values[np.asarray(miss)]),
-                                   self.posterior_noise([labels[i] for i in miss]))
+            z = self._encode_rows(sample, miss)
             for j, i in enumerate(miss):
                 row = z[j].clone()  # owns its storage: the budget counts it alone
                 have[labels[i]] = row
@@ -284,15 +300,18 @@ class Diffuman4DPipeline:
         """Per-frame device-resident uint8 skeleton rows (LRU-cached), as a
         list: a cache entry and a live task share one tensor."""
         idx = range(len(sample.labels)) if indices is None else indices
-        rows = []
+        rows, misses = [], 0
         for i in idx:
             lb = sample.labels[i]
             a = self._skel_cache.value(lb)
             if a is None:
+                misses += 1
                 u8 = _skel_u8(sample.skeletons[i])
                 a = torch.from_numpy(np.ascontiguousarray(u8)).to(self.device)
                 self._skel_cache.put(lb, a, u8.nbytes)
             rows.append(a)
+        count("cond/skel_cache_hit", len(rows) - misses)
+        count("cond/skel_cache_miss", misses)
         return rows
 
     def _skeletons_to_device(self, sample, indices=None) -> torch.Tensor:
@@ -306,8 +325,13 @@ class Diffuman4DPipeline:
         # hits first: inserting the misses may evict this task's own rows
         have = {lb: self._pose_cache.value(lb) for lb in labels if lb in self._pose_cache}
         miss = [i for i, lb in enumerate(labels) if lb not in have]
+        count("cond/pose_cache_hit", len(labels) - len(miss))
+        count("cond/pose_cache_miss", len(miss))
         if miss:
-            fm = self._pose_from_skel(self._skeletons_to_device(sample, miss))
+            with phase("cond/upload", sync=False):
+                rows = self._skel_rows(sample, miss)
+            with phase("cond/pose_encode", device=self._on_card):
+                fm = self._pose_from_skel(self._skel_norm(torch.stack(rows)))
             for j, i in enumerate(miss):
                 row = fm[j].clone()
                 have[labels[i]] = row
@@ -333,43 +357,55 @@ class Diffuman4DPipeline:
             if self.cond_cache:
                 z = self._cond_latents_cached(sample, list(cond_rows))
             else:
-                z = self.encode_images(self._to_device(sample.pixel_values[cond_rows]),
-                                       self.posterior_noise([sample.labels[i] for i in cond_rows]))
+                z = self._encode_rows(sample, cond_rows)
             pix_latents[torch.from_numpy(cond_rows).to(self.device)] = z
-        Ks = torch.from_numpy(np.asarray(sample.Ks, np.float32)).to(self.device)
-        poses = torch.from_numpy(np.asarray(sample.poses, np.float32)).to(self.device)
-        plucker = calc_plucker_embeds_lowres(
-            self.image_size, self.image_size, Ks, poses, self.latent_size, self.latent_size
-        ).to(self.dtype)
-        cond = {
-            "pix_latents": pix_latents,
-            "plucker": plucker,
-            "is_cond": torch.from_numpy(is_cond).to(self.device),
-        }
+        with phase("cond/upload", sync=False):
+            Ks = torch.from_numpy(np.asarray(sample.Ks, np.float32)).to(self.device)
+            poses = torch.from_numpy(np.asarray(sample.poses, np.float32)).to(self.device)
+            is_cond_t = torch.from_numpy(is_cond).to(self.device)
+        with phase("cond/plucker", device=self._on_card):
+            plucker = calc_plucker_embeds_lowres(
+                self.image_size, self.image_size, Ks, poses, self.latent_size, self.latent_size
+            ).to(self.dtype)
+        cond = {"pix_latents": pix_latents, "plucker": plucker, "is_cond": is_cond_t}
         if not self.unet.config.enable_pose_encoder:
-            if self.cond_cache:
-                skel = self._skeletons_to_device(sample)
-            elif sample.skeletons.dtype == np.uint8:
-                skel = self._skel_norm(
-                    torch.from_numpy(np.ascontiguousarray(sample.skeletons)).to(self.device))
-            else:
-                skel = self._to_device(sample.skeletons)
-            cond["skeleton_latents"] = self.encode_images(skel,
-                                                          self.skeleton_noise(sample.labels))
+            with phase("cond/upload", sync=False):
+                if self.cond_cache:
+                    skel = torch.stack(self._skel_rows(sample))
+                elif sample.skeletons.dtype == np.uint8:
+                    skel = torch.from_numpy(np.ascontiguousarray(sample.skeletons)).to(self.device)
+                else:
+                    skel = self._to_device(sample.skeletons)
+                noise = self.skeleton_noise(sample.labels)
+            with phase("cond/vae_encode", device=self._on_card):
+                if skel.dtype == torch.uint8:
+                    skel = self._skel_norm(skel)
+                cond["skeleton_latents"] = self.encode_images(skel, noise)
             return cond
         fits = n * self._pose_feature_bytes() <= self._pose_cache.budget
         if fits and self.cond_cache:
             cond["pose_features"] = self._pose_features_lru(sample)
         elif fits:
-            u8 = torch.from_numpy(np.ascontiguousarray(_skel_u8(sample.skeletons)))
-            cond["pose_features"] = self._pose_from_skel(self._skel_norm(u8.to(self.device)))
-        elif self.cond_cache:
-            cond["skel_rows"] = self._skel_rows(sample)
+            with phase("cond/upload", sync=False):
+                u8 = torch.from_numpy(np.ascontiguousarray(_skel_u8(sample.skeletons)))
+                u8 = u8.to(self.device)
+            with phase("cond/pose_encode", device=self._on_card):
+                cond["pose_features"] = self._pose_from_skel(self._skel_norm(u8))
         else:
-            cond["skel_rows"] = [torch.from_numpy(_skel_u8(sk)).to(self.device)
-                                 for sk in sample.skeletons]
+            with phase("cond/upload", sync=False):
+                cond["skel_rows"] = self._skel_rows(sample) if self.cond_cache else [
+                    torch.from_numpy(_skel_u8(sk)).to(self.device) for sk in sample.skeletons]
         cond["neg_pose_feature"] = self._neg_pose_feature(sample.skeletons.shape[1:])
         return cond
+
+    def _encode_rows(self, sample, rows) -> torch.Tensor:
+        """VAE latents of ``sample``'s frames ``rows``, each with its
+        label's posterior noise."""
+        with phase("cond/upload", sync=False):
+            px = self._to_device(sample.pixel_values[np.asarray(rows)])
+            noise = self.posterior_noise([sample.labels[i] for i in rows])
+        with phase("cond/vae_encode", device=self._on_card):
+            return self.encode_images(px, noise)
 
     # -- per-chunk condition streaming ---------------------------------
     def _window_chunk_size(self, n_windows: int) -> int:
@@ -508,8 +544,10 @@ class Diffuman4DPipeline:
         pad_u = self._chunk_pad_u(windows, c) if stream else 0
         for i in range(0, windows.shape[0], c):
             wchunk = windows[i : i + c]
-            # a streamed chunk's conditions have their own row numbering
-            cond_c, wc = self._chunk_cond(cond, wchunk, pad_u) if stream else (cond, wchunk)
+            cond_c, wc = cond, wchunk
+            if stream:  # a streamed chunk's conditions have their own row numbering
+                with phase("cond/chunk", device=self._on_card):
+                    cond_c, wc = self._chunk_cond(cond, wchunk, pad_u)
             per_row = [k for k in cond_c if k != "neg_pose_feature"]
             for w, w_cond in zip(wchunk, wc):
                 wi = torch.from_numpy(w.astype(np.int64)).to(self.device)
@@ -520,7 +558,9 @@ class Diffuman4DPipeline:
                 lat_w, ti_w = latents[wi], t_dev[wi]
                 aux_w = None if aux is None else {k: v[wi] for k, v in aux.items()}
                 for _ in range(self.sliding.num_denoising_steps):
-                    lat_w, ti_w, aux_w = self._denoise_step(cond_w, lat_w, ti_w, domain, aux_w)
+                    with phase("denoise/window_step", device=self._on_card):
+                        lat_w, ti_w, aux_w = self._denoise_step(cond_w, lat_w, ti_w, domain,
+                                                                aux_w)
                 latents[wi] = lat_w
                 t_dev[wi] = ti_w
                 if aux is not None:

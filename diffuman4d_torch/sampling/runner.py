@@ -55,15 +55,18 @@ class SamplingRunner:
         self.sampler.execute_tasks_parallel(mesh)
 
     def _dump_phases(self) -> None:
-        """Per-phase wall-clock table -> phases.json + job log. The CLI
-        calls it once, after its last stage, so the table also holds the
-        export and evaluation."""
-        from diffuman4d_torch.utils.tracing import dump_report, report
+        """Per-phase time table -> phases.json + job log, and the counters
+        (tasks, latent steps, cache hits and misses, kernel builds) ->
+        counters.json. The CLI calls it once, after its last stage, so the
+        table also holds the export and evaluation."""
+        from diffuman4d_torch.utils.tracing import counters, dump_counters, dump_report, report
 
         rep = report()
         if rep:
             dump_report(osp.join(self.sampler.output_dir, "phases.json"))
             log.info("phase report: %s", rep)
+        if counters():
+            dump_counters(osp.join(self.sampler.output_dir, "counters.json"))
 
     def evaluate(self, data_dir: str, scene_label: str, **kwargs) -> dict:
         """Masked PSNR/SSIM/LPIPS vs GT (sampling_runner.py:64-77), on the

@@ -42,12 +42,20 @@ unions every rank's saved cells. The JAX sampler's per-task noise keys
 (``_task_key``) have no counterpart: the port's noise is drawn per grid cell
 and per frame label. The host mirror is not ported.
 
-Each task's stages are timed as ``task/*`` phases (``utils/tracing.py``):
+Each task's stages are timed as ``task/*`` phases (``utils/tracing.py``;
+profiler ranges of the same names while a profiler records):
 ``load_sample`` and ``decode_save`` on their threads, overlapping the main
-thread's ``prepare_conditions`` and ``sliding_denoise``, so the phases sum to
-more than the wall time; the decode runs on the card's one stream, so its
-device time also lands inside the main thread's next synchronised phase.
-A wave adds ``wave/gather``.
+thread's ``prepare_conditions`` and ``sliding_denoise``, so the phases sum
+to more than the wall time; the decode runs on the card's one stream, so
+its device time also lands inside the main thread's next synchronised
+phase. Inside ``decode_save``, ``save/decode`` is timed on the card (from
+its first to its last operation on that stream, with whatever the main
+thread queued between) and ``save/write_images`` (the JPEG writes) on the
+host. The main thread's waits are ``task/prefetch_wait`` (for the IO
+thread's next sample) and ``task/save_wait`` (in :meth:`_flush_saves`, for
+the saver). A wave adds ``wave/gather``. The pipeline's spans (``cond/*``,
+``denoise/window_step``) nest inside. Counters: ``sampler/tasks`` and
+``sampler/latent_steps`` (the grid moves of the tasks run).
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ from diffuman4d_torch.sampling.outputs import (
 )
 from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
 from diffuman4d_torch.sampling.windows import build_windows
-from diffuman4d_torch.utils.tracing import RankedLogger, phase
+from diffuman4d_torch.utils.tracing import RankedLogger, count, phase
 
 log = logging.getLogger(__name__)
 rlog = RankedLogger(__name__)
@@ -355,8 +363,11 @@ class SlidingIterativeSampler:
             k: v[spa_t, tem_t] for k, v in self.grid_aux.items()}
         windows = self._windows_for(task, len(sample.labels))
         with phase("task/sliding_denoise"):
-            return self.pipeline.sliding_denoise(cond, latents, t_idx, windows, task.domain,
-                                                 aux=aux)
+            out = self.pipeline.sliding_denoise(cond, latents, t_idx, windows, task.domain,
+                                                aux=aux)
+        count("sampler/tasks")
+        count("sampler/latent_steps", int((out[1].astype(np.int64) - t_idx).sum()))
+        return out
 
     def _scatter(self, labels, latents: torch.Tensor, t_idx: np.ndarray,
                  aux: dict | None) -> None:
@@ -387,8 +398,19 @@ class SlidingIterativeSampler:
     def _flush_saves(self) -> None:
         """Join pending saves, re-raising the first failure."""
         futs, self._save_futs = self._save_futs, []
-        for f in futs:
-            f.result()
+        if not futs:
+            return
+        with phase("task/save_wait", sync=False):
+            for f in futs:
+                f.result()
+
+    @staticmethod
+    def _next_sample(fut) -> Sample | None:
+        """The IO thread's prefetched sample (``None`` without one)."""
+        if fut is None:
+            return None
+        with phase("task/prefetch_wait", sync=False):
+            return fut.result()
 
     @torch.no_grad()  # no_grad is thread-local: the saver thread needs its own
     def _save_task_outputs(self, task: Task, sample: Sample, latents: torch.Tensor,
@@ -401,15 +423,19 @@ class SlidingIterativeSampler:
             done = t_idx == self.pipeline.sliding.total_steps
             if done.any():
                 rows = np.nonzero(done)[0]
-                images = self.pipeline.decode(latents[torch.from_numpy(rows).to(latents.device)])
-                save_final_images(images, [sample.labels[i] for i in rows],
-                                  [sample.crops[i] for i in rows], self.output_dir)
+                with phase("save/decode", device=self.pipeline.device.type == "cuda"):
+                    images = self.pipeline.decode(
+                        latents[torch.from_numpy(rows).to(latents.device)])
+                with phase("save/write_images", sync=False):
+                    save_final_images(images, [sample.labels[i] for i in rows],
+                                      [sample.crops[i] for i in rows], self.output_dir)
                 self._saved_cells.update(sample.labels[i][1:3] for i in rows)
             inp = np.nonzero(sample.cond_masks == 0.0)[0]
             if inp.size:
-                save_final_images(sample.pixel_values[inp] * 0.5 + 0.5,
-                                  [sample.labels[i] for i in inp],
-                                  [sample.crops[i] for i in inp], self.output_dir)
+                with phase("save/write_images", sync=False):
+                    save_final_images(sample.pixel_values[inp] * 0.5 + 0.5,
+                                      [sample.labels[i] for i in inp],
+                                      [sample.crops[i] for i in inp], self.output_dir)
                 self._saved_cells.update(sample.labels[i][1:3] for i in inp)
             if self.save_debug_grids:
                 self._save_debug_grid(task, sample, latents)
@@ -466,7 +492,7 @@ class SlidingIterativeSampler:
         fut = None
         try:
             for j, (round_idx, task_idx, task) in enumerate(todo):
-                sample = fut.result() if fut is not None else None
+                sample = self._next_sample(fut)
                 fut = prefetch.submit(self._load_timed, todo[j + 1][2]) if j + 1 < len(todo) \
                     else None
                 self.execute_one_task(task, sample=sample, save_async=True)
@@ -538,7 +564,7 @@ class SlidingIterativeSampler:
                 tasks = self.all_tasks[round_idx]
                 n_real = min(n_wave, len(tasks) - i)
                 task = mine(w)
-                sample = fut.result() if fut is not None else self._load_timed(task)
+                sample = self._next_sample(fut) if fut is not None else self._load_timed(task)
                 fut = prefetch.submit(self._load_timed, mine(w + 1)) if w + 1 < len(waves) \
                     else None
                 latents, t_idx, aux = self._denoise_task(task, sample)

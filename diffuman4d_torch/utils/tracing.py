@@ -1,27 +1,39 @@
 """Tracing and timing (counterpart of ``diffuman4d_tpu/utils/tracing.py``):
-phase timers, the torch profiler, and the one kernel timer of the port's
-measurement tools with the card's peaks and name.
+phase spans and counters, the torch profiler, and the one kernel timer of
+the port's measurement tools with the card's peaks and name.
 
 Usage::
 
-    from diffuman4d_torch.utils.tracing import phase, report, trace_to
+    from diffuman4d_torch.utils.tracing import count, counters, phase, report
 
     with phase("task/sliding_denoise"):       # wall clock, device-synced
         ...
-    print(report())
+    with phase("task/save_wait", sync=False): # wall clock, no synchronise
+        ...
+    with phase("denoise/window_step", device=True):  # CUDA events, no wait
+        ...
+    count("sampler/latent_steps", 528)
+    print(report())     # {name: {count, total_s, mean_s, max_s, p50_s, p90_s}}
+    print(counters())   # {name: total}
 
     with trace_to("results/trace_step"):      # Chrome trace of host and card
-        ...
+        ...                                    # (every phase a range in it)
 
     RankedLogger(__name__).info("wave done")   # "[rank3] wave done"
 
     sec = timed(lambda: kernel(q, k, v), n=10)  # CUDA events, min of 3 windows
     rates(sec, flops=4 * b * h * s * s * d)    # {"ms", "tflops", "pct_of_bound", ...}
+
+While a torch profiler records, every phase is also a ``record_function``
+range of its name, and each call of a function decorated with
+:func:`ranged` is a range alone, with no span. With no profiler recording,
+neither opens one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -32,6 +44,7 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 log = logging.getLogger(__name__)
 
@@ -40,45 +53,138 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 _TIMES: dict[str, list[float]] = defaultdict(list)
+# device phases' (start, end) CUDA event pairs, resolved into _TIMES by report()
+_EVENTS: dict[str, list[tuple]] = defaultdict(list)
+_COUNTS: dict[str, int] = defaultdict(int)
 _LOCK = threading.Lock()  # phases are also timed on the sampler's IO threads
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A ``record_function`` range ``name`` while a torch profiler records,
+    from any thread; else a no-op context.
+    The check is the profiler's own module flag, a global: the C++ state
+    behind ``torch._C._autograd._profiler_enabled`` is per thread, false on
+    the sampler's threads and, with ``profile_all_threads``, everywhere."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return _autograd_profiler.record_function(name)
+
+
+def ranged(name: str):
+    """Decorate a function so that each call is a profiler range ``name``
+    while a profiler records (no span: the call is not timed)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with _range(name):
+                return fn(*args, **kwargs)
+        return call
+    return deco
 
 
 @contextlib.contextmanager
-def phase(name: str, sync: bool = True):
+def phase(name: str, sync: bool = True, device: bool = False):
     """Time a phase. With ``sync`` and work on the card (CUDA initialised)
     the card is synchronised at exit, so the time includes the phase's queued
     device work; a phase on a helper thread passes ``sync=False`` and ends
     with its own blocking copy instead (a synchronise would wait for the main
-    thread's work too)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        with _LOCK:
-            _TIMES[name].append(dt)
+    thread's work too). ``device=True`` times the block on the card instead:
+    a CUDA event pair on the current stream, recorded without a wait and
+    resolved by :func:`report` (``sync`` is then unused); with CUDA not
+    initialised it falls back to the host clock."""
+    events = None
+    if device and torch.cuda.is_initialized():
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    with _range(name):
+        if events is not None:
+            events[0].record()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if events is not None:
+                events[1].record()
+                with _LOCK:
+                    _EVENTS[name].append(events)
+            else:
+                if sync and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                with _LOCK:
+                    _TIMES[name].append(dt)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (kept apart from the phases:
+    :func:`counters`)."""
+    with _LOCK:
+        _COUNTS[name] += n
+
+
+def counters(reset: bool = False) -> dict[str, int]:
+    with _LOCK:
+        out = dict(_COUNTS)
+        if reset:
+            _COUNTS.clear()
+    return out
+
+
+def _quantile(s: list[float], q: float) -> float:
+    """The ``q`` quantile of sorted ``s``, interpolated linearly (numpy's
+    default)."""
+    x = q * (len(s) - 1)
+    i = int(x)
+    return s[i] + (s[min(i + 1, len(s) - 1)] - s[i]) * (x - i)
+
+
+def _resolve_events() -> None:
+    """Move the device phases' event pairs into their times: each end event
+    waited for (the card's work up to it), then the pair's elapsed time."""
+    with _LOCK:
+        pending = {name: pairs for name, pairs in _EVENTS.items() if pairs}
+        _EVENTS.clear()
+    done = {}
+    for name, pairs in pending.items():
+        done[name] = []
+        for start, end in pairs:
+            end.synchronize()
+            done[name].append(start.elapsed_time(end) / 1e3)
+    with _LOCK:
+        for name, vals in done.items():
+            _TIMES[name].extend(vals)
 
 
 def report(reset: bool = False) -> dict[str, dict]:
+    """Every phase's count, total, mean, max and its median and 90th
+    percentile, in seconds; the device phases resolved first."""
+    _resolve_events()
     out = {}
     with _LOCK:
         for name, vals in _TIMES.items():
+            s = sorted(vals)
             out[name] = {
                 "count": len(vals),
                 "total_s": round(sum(vals), 4),
                 "mean_s": round(sum(vals) / len(vals), 4),
-                "max_s": round(max(vals), 4),
+                "max_s": round(s[-1], 4),
+                "p50_s": round(_quantile(s, 0.5), 4),
+                "p90_s": round(_quantile(s, 0.9), 4),
             }
         if reset:
             _TIMES.clear()
+            _EVENTS.clear()
     return out
 
 
 def dump_report(path: str) -> None:
     with open(path, "w") as f:
         json.dump(report(), f, indent=2)
+
+
+def dump_counters(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(counters(), f, indent=2, sort_keys=True)
 
 
 @contextlib.contextmanager

@@ -42,8 +42,8 @@ ARGS = [
     "sampler.alternation_rounds=2",
     "evaluating=true",
 ]
-# written by the port's CLI only: its run logs
-NOT_COMPARED = ("config_tree.log", "job.log")
+# written by the port's CLI only: its run logs and counters
+NOT_COMPARED = ("config_tree.log", "job.log", "counters.json")
 # the grid states' latents: fp32 on both sides, summation order only (the
 # slice test's bound)
 LATENT_ATOL = 2e-4
@@ -155,6 +155,7 @@ def test_cli_writes_the_jax_package_files(runs):
     assert {"cli/sampling", "cli/to_nerfstudio", "cli/evaluate", "task/sliding_denoise"} <= set(
         phases)
     assert phases["task/sliding_denoise"]["count"] == 6  # 2 spatial + 4 temporal tasks
+    assert json.loads((port_out / "counters.json").read_text())["sampler/tasks"] == 6
 
 
 def test_cli_grid_state_matches_jax(runs):
