@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffuman4d_torch.ops.attention import dot_product_attention
-from diffuman4d_torch.ops.conv import conv3x3, conv3x3_ok, groupnorm_affine
+from diffuman4d_torch.ops.conv import conv3x3, conv3x3_ok
+from diffuman4d_torch.ops.groupnorm import group_norm, groupnorm_affine
 from diffuman4d_torch.ops.resize import upsample_nearest_2x
 
 
@@ -65,9 +66,12 @@ class TimestepEmbedding(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over NHWC with fp32 statistics, output in the input dtype.
-    Groups = gcd(num_groups, channels), as in the JAX package (only tiny
-    test configs are not multiples of 32)."""
+    """GroupNorm over NHWC with fp32 statistics, output in the input dtype,
+    SiLU optional (``silu=True`` for ``F.silu(norm(x))``), through
+    :func:`ops.groupnorm.group_norm`: the kernel pair on a CUDA tensor, the
+    plain version on the CPU or where autograd needs it. Groups =
+    gcd(num_groups, channels), as in the JAX package (only tiny test configs
+    are not multiples of 32)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -76,14 +80,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        xg = x.float().reshape(B, H * W, self.groups, C // self.groups)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = (xg.square().mean(dim=(1, 3), keepdim=True) - mean.square()).clamp(min=0.0)
-        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(B, H, W, C)
-        y = y * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps, silu=silu)
 
 
 class Attention(nn.Module):
@@ -174,9 +172,9 @@ class ResnetBlock2D(nn.Module):
             x.shape[:3] + (self.out_channels,), self.out_channels
         ):
             return self._fused(x, temb)
-        h = conv_nhwc(self.conv1, F.silu(self.norm1(x)))
+        h = conv_nhwc(self.conv1, self.norm1(x, silu=True))
         h = self._temb(h, temb)
-        h = conv_nhwc(self.conv2, F.silu(self.norm2(h)))
+        h = conv_nhwc(self.conv2, self.norm2(h, silu=True))
         return self._shortcut(x) + h
 
     def _fused(self, x: torch.Tensor, temb: torch.Tensor | None) -> torch.Tensor:

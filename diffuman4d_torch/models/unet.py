@@ -28,7 +28,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -233,5 +232,5 @@ class UNetMultiviewCondition(nn.Module):
             x = self._run(lambda x, emb, *skips, blk=blk, nf=nf: blk(x, list(skips), emb, nf),
                           x, emb, *take)
 
-        x = F.silu(self.conv_norm_out(x))
+        x = self.conv_norm_out(x, silu=True)
         return conv_nhwc(self.conv_out, x)

@@ -120,7 +120,7 @@ class Encoder(nn.Module):
         for stage in self.down_blocks:
             x = stage(x)
         x = self.mid_block(x)
-        return conv_nhwc(self.conv_out, F.silu(self.conv_norm_out(x)))
+        return conv_nhwc(self.conv_out, self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -145,7 +145,7 @@ class Decoder(nn.Module):
         x = self.mid_block(conv_nhwc(self.conv_in, z))
         for stage in self.up_blocks:
             x = stage(x)
-        return conv_nhwc(self.conv_out, F.silu(self.conv_norm_out(x)))
+        return conv_nhwc(self.conv_out, self.conv_norm_out(x, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -204,23 +204,3 @@ def conv3x3_backward(x, w, scale, shift, g, silu: bool, bias_dtype, res_dtype, n
         else:
             dx = dpre.to(x.dtype)
     return dx, dw, dbias, dscale, dshift, dres
-
-
-def groupnorm_affine(
-    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int, eps: float
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fold GroupNorm statistics into a per-(batch, channel) affine for the
-    conv prologue: ``(x - mean) * rstd * gamma + beta == x * scale + shift``
-    (fp32; a plain reduction, as in the JAX package)."""
-    B, H, W, C = x.shape
-    xf = x.float()
-    s1 = xf.mean(dim=(1, 2))  # (B, C)
-    s2 = xf.square().mean(dim=(1, 2))
-    mean = s1.reshape(B, groups, -1).mean(dim=-1)  # (B, G)
-    var = s2.reshape(B, groups, -1).mean(dim=-1) - mean.square()
-    rstd = torch.rsqrt(var + eps)
-    rep = rstd.repeat_interleave(C // groups, dim=1)  # (B, C)
-    mrep = mean.repeat_interleave(C // groups, dim=1)
-    scale = rep * gamma.float()[None, :]
-    shift = beta.float()[None, :] - mrep * scale
-    return scale, shift

@@ -43,6 +43,10 @@ ENTRIES = {
         "flash_attn_bwd_fused": [_PTR] * 11 + [_INT] * 4 + [_PTR],
         "flash_attn_bwd_probe": [_PTR] * 6,
     },
+    "groupnorm_hopper": {
+        "groupnorm_stats": [_PTR] * 6 + [_INT] * 8 + [_PTR],
+        "groupnorm_apply": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    },
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = (

@@ -56,7 +56,8 @@ def main(argv: list[str] | None = None) -> int:
     import torch.nn.functional as F
 
     from diffuman4d_torch.models.layers import ResnetBlock2D, conv_nhwc
-    from diffuman4d_torch.ops.conv import conv3x3, conv3x3_plain, groupnorm_affine
+    from diffuman4d_torch.ops.conv import conv3x3, conv3x3_plain
+    from diffuman4d_torch.ops.groupnorm import groupnorm_affine
 
     u = Units(args)
     numerics = {}

@@ -21,7 +21,6 @@ import os
 import sys
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from diffuman4d_torch.models.layers import GroupNorm, conv_nhwc
@@ -123,14 +122,15 @@ class Conv3x3(nn.Conv2d):
 
 
 class GroupNormSiLU(nn.Module):
-    """GroupNorm (fp32 statistics) then SiLU in fp32, as the model runs it."""
+    """GroupNorm (fp32 statistics) then SiLU, as the model runs it
+    (``GroupNorm(x, silu=True)``: the kernel pair on the card)."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5):
         super().__init__()
         self.norm = GroupNorm(channels, groups, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.norm(x).float()).to(x.dtype)
+        return self.norm(x, silu=True)
 
 
 def conv_flops(b: int, h: int, w: int, cin: int, cout: int) -> float:

@@ -564,3 +564,71 @@ def test_vae_kernels_repeat_bit_for_bit(gen):
     kw = dict(scale=1 + _randn(gen, 2, 192, scale=0.1), shift=_randn(gen, 2, 192, scale=0.1),
               silu=True)
     assert torch.equal(conv.conv3x3(x, w, b, **kw), conv.conv3x3(x, w, b, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,groups", [
+    (2, 13, 11, 320, 32),  # C / G = 10: vectors of 8 channels cross groups
+    (3, 9, 7, 960, 32),  # 30 channels a group
+    (1, 33, 20, 128, 32),  # the VAE's 4 channels a group
+    (2, 5, 3, 12, 4),  # 12 channels: not a whole vector, one channel a thread
+    (1, 1, 1, 40, 8),  # one pixel, one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("silu", [False, True])
+def test_groupnorm_matches_plain(gen, B, H, W, C, groups, dtype, silu):
+    from diffuman4d_torch.ops import groupnorm as gn
+    from diffuman4d_torch.utils.tracing import counters
+
+    x = (_randn(gen, B, H, W, C) * 2 + 0.5).to(dtype)
+    w, b = (1 + _randn(gen, C, scale=0.2)).to(dtype), _randn(gen, C, scale=0.2).to(dtype)
+    before = (gn.groupnorm_stats.launches, gn.groupnorm_apply.launches,
+              counters().get("groupnorm/kernel", 0))
+    got = gn.group_norm(x, w, b, groups, 1e-5, silu=silu)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert (gn.groupnorm_stats.launches, gn.groupnorm_apply.launches,
+            counters().get("groupnorm/kernel", 0)) == tuple(n + 1 for n in before)
+    assert (B, H, W, C, groups) in gn.groupnorm_stats.shapes
+    want = gn.group_norm_plain(x, w, b, groups, 1e-5, silu).float()
+    # 16-bit: the plain version rounds before SiLU and after it, the kernel
+    # once; fp32: statistics summed in another order
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -5
+    assert ((got.float() - want).abs() <= tol * want.abs().clamp_min(1.0)).all()
+
+
+@pytest.mark.cuda
+def test_groupnorm_affine_matches_plain_and_repeats(gen):
+    """The statistics alone (the fused conv's prologue affine): fp32 scale
+    and shift close to the plain version's, the same bits on every launch,
+    with bf16 or fp32 parameters."""
+    from diffuman4d_torch.ops import groupnorm as gn
+
+    x = (_randn(gen, 2, 37, 29, 256) * 3 + 1.0).bfloat16()
+    for pdtype in (torch.bfloat16, torch.float32):
+        g, b = (1 + _randn(gen, 256, scale=0.2)).to(pdtype), _randn(gen, 256).to(pdtype)
+        scale, shift = gn.groupnorm_affine(x, g, b, 32, 1e-6)
+        ws, wsh = gn.groupnorm_affine_plain(x, g, b, 32, 1e-6)
+        assert scale.dtype == shift.dtype == torch.float32 and scale.shape == (2, 256)
+        torch.testing.assert_close(scale, ws, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(shift, wsh, rtol=1e-5, atol=1e-5)
+        again = gn.groupnorm_affine(x, g, b, 32, 1e-6)
+        assert torch.equal(scale, again[0]) and torch.equal(shift, again[1])
+
+
+@pytest.mark.cuda
+def test_groupnorm_with_grad_takes_the_plain_version(gen):
+    """Only an autograd call keeps the eager path: its gradients flow, and no
+    kernel launches."""
+    from diffuman4d_torch.models.layers import GroupNorm
+    from diffuman4d_torch.ops import groupnorm as gn
+
+    norm = GroupNorm(64, 32).cuda()
+    x = _randn(gen, 2, 6, 5, 64).requires_grad_()
+    before = gn.groupnorm_stats.launches
+    norm(x, silu=True).sum().backward()
+    assert gn.groupnorm_stats.launches == before
+    assert x.grad is not None and norm.weight.grad is not None
+    with torch.no_grad():
+        norm(x, silu=True)
+    assert gn.groupnorm_stats.launches == before + 1

@@ -65,6 +65,21 @@ def test_groupnorm(channels, groups):
     _compare(port(t(x)), jit_apply(mod)(p, j(x)))
 
 
+@pytest.mark.parametrize("channels,groups", [(40, 4), (60, 2), (24, 8)])
+def test_groupnorm_silu_flag(channels, groups):
+    """``GroupNorm(x, silu=True)`` is the JAX package's ``silu(GroupNorm(x))``
+    (C / G = 10, 30 and 3 channels a group)."""
+    from diffuman4d_tpu.models.layers import GroupNorm as J
+    from diffuman4d_torch.models.layers import GroupNorm
+
+    x = randn(rng(1), 2, 5, 6, channels) * 2 + 0.5
+    mod = J(groups, 1e-5)
+    p = _init(mod, j(x))
+    port = load_block(GroupNorm(channels, groups, 1e-5), p["params"]["GroupNorm_0"])
+    want = jax.jit(lambda p, x: jax.nn.silu(mod.apply(p, x)))(p, j(x))
+    _compare(port(t(x), silu=True), want)
+
+
 def test_attention_block_head_dim_64():
     from diffuman4d_tpu.models.layers import Attention as J
     from diffuman4d_torch.models.layers import Attention

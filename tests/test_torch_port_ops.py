@@ -169,7 +169,7 @@ def test_conv3x3_fp32_input_keeps_dtype():
 @pytest.mark.parametrize("groups", [4, 2])
 def test_groupnorm_affine_matches_jax(groups):
     from diffuman4d_tpu.ops.conv import groupnorm_affine as jga
-    from diffuman4d_torch.ops.conv import groupnorm_affine
+    from diffuman4d_torch.ops.groupnorm import groupnorm_affine
 
     r = rng(6)
     x = randn(r, 2, 6, 5, 8) * 3 + 1

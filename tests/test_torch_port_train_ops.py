@@ -239,7 +239,7 @@ def test_conv3x3_gradients_match_jax(variant):
 
 
 def test_groupnorm_affine_is_differentiable():
-    from diffuman4d_torch.ops.conv import groupnorm_affine
+    from diffuman4d_torch.ops.groupnorm import groupnorm_affine
 
     r = rng(6)
     x = t(randn(r, 2, 6, 5, 8)).requires_grad_(True)
