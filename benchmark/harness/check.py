@@ -2,12 +2,11 @@
 reference in fp32 (TF32 off), after the window has closed and the program's
 state is freed.
 
-The reference follows the program one window step at a time from the
-program's own state (the latents and, for DPM++, the history that the step
+The reference, the model family's ``Reference`` (``benchmark/families/``),
+follows the program one window step at a time from the program's own state
+(the latents and, for a multistep scheduler, the history that the step
 received), and works out everything else itself from the raw scene files and
-the seed: the rows' conditions (VAE posterior draws of the conditional
-frames, Plücker rays, pose features or skeleton latents), the weights, the
-schedule. The start is checked on its own: the grid the sampler starts from
+the seed: the rows' conditions, the weights, the schedule. The start is checked on its own: the grid the sampler starts from
 (fresh seeded noise, or the resumed seeded state) must equal the reference's
 bit for bit. So is the chain between the steps: from that start, every
 step of the first job must receive what the schedule and the steps before
@@ -24,7 +23,7 @@ Numbers, each against its limit in the cell's file:
   rounding, relative to the model's part of the reference's update of that
   row, ``|out_ref - out0_ref|`` (``out0_ref``: the same step with eps = 0;
   the step is affine in eps); see :func:`_row_err`;
-* ``hist`` (DPM++): the same for the history's x0 prediction;
+* ``hist`` (a multistep scheduler): the same for the history's x0 prediction;
 * ``decode`` (a mix that decodes): over the sampled frames, the largest RMS
   difference, in 8-bit levels, between the program's decoded image and the
   reference's decode of the same latents.
@@ -36,11 +35,6 @@ import time
 
 import numpy as np
 import torch
-
-from benchmark.harness import weights as W
-from benchmark.reference import data as ref_data
-from benchmark.reference import models as ref_models
-from benchmark.reference import sampling as ref_sampling
 
 RESOLVE = 4.0
 
@@ -146,84 +140,13 @@ def chain(start: dict, tasks: list, steps: list, decodes: list, n_denoise: int,
     return bad + sum(1 for _ in it)
 
 
-def _u8(x: torch.Tensor) -> torch.Tensor:
-    return torch.floor((x.float() * 0.5 + 0.5).clamp(0, 1) * 255.0 + 0.5)
-
-
-class Reference:
-    """The plain reference of one configuration on ``device``, fp32 weights
-    from the seed."""
-
-    def __init__(self, config: dict, seed: int, device, entries):
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        self.config, self.device = config, device
-        with torch.device(device):
-            self.unet = ref_models.UNet(config["unet"]).eval()
-            self.vae = ref_models.VAE(config["vae"]).eval()
-        w = W.make_weights(entries, seed, device, torch.bfloat16)
-        for key, mod in (("unet", self.unet), ("vae", self.vae)):
-            mod.load_state_dict({k: v.float() for k, v in W.split(w, key).items()}, strict=True)
-        del w
-
-    def set_fp8(self, fp8: bool) -> None:
-        for mod in (self.unet, self.vae):
-            ref_models.set_prec(mod, ref_models.Prec(fp8=fp8))
-
-    @torch.no_grad()
-    def encode(self, images: torch.Tensor, noise: torch.Tensor, batch: int = 4) -> torch.Tensor:
-        return torch.cat([self.vae.encode(images[i:i + batch], noise[i:i + batch])
-                          for i in range(0, images.shape[0], batch)])
-
-    @torch.no_grad()
-    def conditions(self, scene_dir: str, labels, first_label, is_cond, cond_seed: int,
-                   size: int, latent: int) -> dict:
-        """The window rows' conditions, from the raw files."""
-        dev = self.device
-        pix, skel, K, pose = ref_data.load_rows(scene_dir, [first_label] + list(labels), size)
-        pix, skel, K, pose = pix[1:], skel[1:], K[1:], pose[1:]
-        cond = {"rays": ref_data.plucker(torch.from_numpy(K).to(dev),
-                                         torch.from_numpy(pose).to(dev), size, latent)}
-        lat = torch.zeros((len(labels), latent, latent, 4), device=dev)
-        rows = np.nonzero(is_cond)[0]
-        if rows.size:
-            noise = ref_data.label_noise(cond_seed, [labels[i] for i in rows], latent).to(dev)
-            lat[torch.from_numpy(rows).to(dev)] = self.encode(
-                torch.from_numpy(pix[rows]).to(dev), noise)
-        cond["cond_lat"] = lat
-        sk = torch.from_numpy(skel).to(dev).float() / 127.5 - 1.0
-        cond["pose"] = cond["neg_pose"] = cond["skel_lat"] = None
-        if self.config["unet"]["enable_pose_encoder"]:
-            pe = self.unet.pose_encoder
-            cond["pose"] = torch.cat([pe(sk[i:i + 4]) for i in range(0, len(labels), 4)])
-            cond["neg_pose"] = pe(-torch.ones_like(sk[:1]))
-        else:
-            noise = ref_data.label_noise(cond_seed, list(labels), latent,
-                                         ref_data.SKELETON_NOISE_TAG).to(dev)
-            cond["skel_lat"] = self.encode(sk, noise)
-        return cond
-
-    @torch.no_grad()
-    def step(self, sched, guidance: float, domain: str, rec: dict, is_cond, cond: dict):
-        aux = None if rec["aux"] is None else {k: v.to(self.device)
-                                               for k, v in rec["aux"].items()}
-        return ref_sampling.window_step(
-            self.unet, sched, guidance, domain, rec["x"].float().to(self.device),
-            rec["t_idx"], is_cond, cond["cond_lat"], cond["rays"], cond["pose"],
-            cond["neg_pose"], cond["skel_lat"], aux)
-
-    @torch.no_grad()
-    def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        return _u8(torch.cat([self.vae.decode(latents[i:i + 1].float().to(self.device))
-                              for i in range(latents.shape[0])]))
-
-
 def compare(run: dict, control: bool = False) -> tuple[dict, dict, dict]:
     """(readings, control readings, seconds by part) of one run's records.
 
-    ``run``: config, seed, device, entries (weight spec), scene_dir, size,
-    latent, guidance, scheduler kind, total_steps, domain, start (program vs
-    expected starting arrays), chain (the arguments of :func:`chain`), steps
+    ``run``: family (the model family's module, whose ``Reference`` is
+    the plain reference), config, seed, device, entries (weight spec),
+    scene_dir, size, latent, total_steps, domain, start (program vs expected
+    starting arrays), chain (the arguments of :func:`chain`), steps
     ([(labels, first_label, is_cond, record)] of the sampled window steps),
     decodes ([(latents, images)] of the sampled frames)."""
     parts: dict = {}
@@ -234,8 +157,8 @@ def compare(run: dict, control: bool = False) -> tuple[dict, dict, dict]:
         parts[name] = parts.get(name, 0.0) + now - clock[0]
         clock[0] = now
 
-    ref = Reference(run["config"], run["seed"], run["device"], run["entries"])
-    sched = ref_sampling.Schedule(run["scheduler"], run["total_steps"])
+    ref = run["family"].Reference(run["config"], run["seed"], run["device"], run["entries"],
+                                  run["total_steps"])
     lap("reference_build")
     out = {"start": max(0.0 if np.array_equal(a, b) else
                         float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))
@@ -249,8 +172,7 @@ def compare(run: dict, control: bool = False) -> tuple[dict, dict, dict]:
         cond = ref.conditions(run["scene_dir"], labels, first, is_cond, run["seed"],
                               run["size"], run["latent"])
         lap("conditions")
-        (ref_out, ref_aux), (ref0, ref0_aux) = ref.step(sched, run["guidance"], run["domain"],
-                                                        rec, is_cond, cond)
+        (ref_out, ref_aux), (ref0, ref0_aux) = ref.step(run["domain"], rec, is_cond, cond)
         lap("step")
         tgt = torch.from_numpy(~is_cond).to(ref_out.device)
         step_err.append(_row_err(rec["out"].to(ref_out.device), ref_out, ref0, tgt))
@@ -261,8 +183,7 @@ def compare(run: dict, control: bool = False) -> tuple[dict, dict, dict]:
             ref.set_fp8(True)
             c_cond = ref.conditions(run["scene_dir"], labels, first, is_cond, run["seed"],
                                     run["size"], run["latent"])
-            (c_out, c_aux), _ = ref.step(sched, run["guidance"], run["domain"], rec, is_cond,
-                                         c_cond)
+            (c_out, c_aux), _ = ref.step(run["domain"], rec, is_cond, c_cond)
             ref.set_fp8(False)
             lap("control")
             # in the program's place: its latents held in the grid's dtype

@@ -1,5 +1,7 @@
-"""The program under test, built from its public constructors, and the one
-general traffic generator that every mix file drives.
+"""The program under test, the model family's pipeline (built by
+``benchmark/families/<family>.py`` from the port's public constructors) in
+the port's sampler, and the one general traffic generator that every mix
+file drives.
 
 A mix file (``benchmark/traffic/<traffic>.json``) gives the experiment preset
 (``exp``: ``demo_3d`` or ``demo_4d``) with its sampler settings stated
@@ -25,16 +27,13 @@ from __future__ import annotations
 import json
 import os.path as osp
 import shutil
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from benchmark.harness import weights as W
 from benchmark.reference import data as ref_data
-from benchmark.reference import models as ref_models
-from benchmark.reference import sampling as ref_sampling
+from benchmark.reference import windows as ref_windows
 from benchmark.traffic.gridstate import write_state
 from benchmark.traffic.scene import make_synthetic_scene
 
@@ -58,11 +57,6 @@ def scene_dir(traffic: dict, cache: str) -> tuple[str, str]:
     return root, label
 
 
-def reference_modules(config: dict, device="meta") -> dict[str, torch.nn.Module]:
-    with torch.device(device):
-        return {"unet": ref_models.UNet(config["unet"]), "vae": ref_models.VAE(config["vae"])}
-
-
 @dataclass
 class Shape:
     """The window's shapes, from the mix and the sampler settings."""
@@ -78,11 +72,11 @@ class Shape:
     decodes: bool
 
     @property
-    def unet_calls_per_step(self) -> int:
+    def denoiser_calls_per_step(self) -> int:
         return 2 if (self.cfg_on and self.split_cfg) else 1
 
     @property
-    def unet_batch(self) -> int:
+    def denoiser_batch(self) -> int:
         return self.rows_per_window * (2 if self.cfg_on and not self.split_cfg else 1)
 
 
@@ -128,22 +122,21 @@ class Recorder:
 
 
 class Program:
-    """One configuration under one mix: weights, pipeline, scene, sampler."""
+    """One configuration under one mix: the model family's pipeline with its
+    weights, the scene, the sampler."""
 
     def __init__(self, cell, seed: int, device, cache: str, image_size: int | None = None,
-                 unet_overrides: dict | None = None, vae_overrides: dict | None = None):
+                 overrides: dict | None = None):
         from diffuman4d_torch.configs.presets import build_config
-        from diffuman4d_torch.models.unet import UNetConfig, UNetMultiviewCondition
-        from diffuman4d_torch.models.vae import AutoencoderKL, VAEConfig
         from diffuman4d_torch.sampling.loader import DTYPES, sliding_from
-        from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline
-        from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig
 
-        self.cell, self.seed, self.device = cell, int(seed), torch.device(device)
-        config = dict(cell.config)
-        config["unet"] = {**config["unet"], **(unet_overrides or {})}
-        config["vae"] = {**config["vae"], **(vae_overrides or {})}
-        self.config = config
+        self.cell, self.family = cell, cell.family
+        self.seed, self.device = int(seed), torch.device(device)
+        # ``overrides``: {config key: {sub-key: value}} merged into the
+        # configuration's groups (the tests' tiny widths)
+        self.config = {**cell.config, **{k: {**cell.config[k], **v}
+                                         for k, v in (overrides or {}).items()}}
+        config = self.config
         traffic = cell.traffic
         self.size = image_size or config["image_size"]
         self.data_root, self.scene = scene_dir(
@@ -154,31 +147,17 @@ class Program:
             f"exp={traffic['exp']}", f"data.data_dir={self.data_root}",
             f"data.scene_label={self.scene}", f"data.height={self.size}",
             f"data.width={self.size}", f"sampler.seed={self.seed}",
-            f"sampler.guidance_scale={config['guidance_scale']}",
+        ] + [f"sampler.{k}={json.dumps(v)}"
+             for k, v in self.family.sampler_settings(config).items()] + [
             f"sampler.tem_label_range=[0, {traffic['frames']}, 1]",
             f"sampler.output_dir={osp.join(self.out_root, 'job0')}",
         ] + [f"sampler.{k}={json.dumps(v)}" for k, v in traffic["sampler"].items()])
         self.dtype = DTYPES[config["dtype"]]
-
-        entries = W.spec(reference_modules(config))
-        weights = W.make_weights(entries, self.seed, self.device, self.dtype)
-        with torch.device("meta"):
-            unet = UNetMultiviewCondition(UNetConfig(**_tuples(config["unet"])))
-            vae = AutoencoderKL(VAEConfig(**_tuples(config["vae"])))
-        for key, mod in (("unet", unet), ("vae", vae)):
-            mod.to_empty(device=self.device)
-            mod.load_state_dict(W.split(weights, key), strict=True)
-        del weights
-        unet = unet.to(dtype=self.dtype, memory_format=torch.channels_last).eval()
-        vae = vae.to(dtype=self.dtype, memory_format=torch.channels_last).eval()
-        scheduler = Scheduler(SchedulerConfig(kind=config["scheduler"]))
-        sliding = sliding_from(self.cfg.sampler)
-        self.pipeline = Diffuman4DPipeline(
-            unet, vae, scheduler, sliding=sliding, image_size=self.size,
-            pose_cache_mb=traffic["pose_cache_mb"], cond_seed=self.seed, device=self.device)
+        self.sliding = sliding = sliding_from(self.cfg.sampler)
+        self.pipeline = self.family.build_pipeline(self)
         sm = traffic["sampler"]
         rounds = sm["alternation_rounds"]
-        steps_per_alt, total_steps = ref_sampling.step_counts(
+        steps_per_alt, total_steps = ref_windows.step_counts(
             sm["window_size"], sm["sliding_stride"], sm["num_denoising_steps"], False, rounds)
         r = traffic["resume_round"]
         domain = ["spatial", "temporal"][r % 2]
@@ -186,9 +165,9 @@ class Program:
         n_targets = traffic["scene"]["cams"] - n_inputs if domain == "spatial" \
             else traffic["frames"]
         n_in = n_inputs if domain == "spatial" else n_targets
-        windows = ref_sampling.windows(np.arange(n_in, n_in + n_targets), np.arange(n_in),
-                                       domain, sliding.window_size, sliding.sliding_stride,
-                                       sliding.sliding_shift, sliding.bidirectional)
+        windows = ref_windows.windows(np.arange(n_in, n_in + n_targets), np.arange(n_in),
+                                      domain, sliding.window_size, sliding.sliding_stride,
+                                      sliding.sliding_shift, sliding.bidirectional)
         self.shape = Shape(
             domain=domain,
             rows_per_window=windows.shape[1],
@@ -198,42 +177,7 @@ class Program:
             cfg_on=sliding.do_cfg, decodes=r == rounds - 1)
 
     # -- set-up ---------------------------------------------------------
-    @torch.no_grad()
-    def warm_up(self) -> float:
-        """Run the cell's own shapes once (the UNet at the window's batch,
-        the VAE encoder at ``vae_batch``, the decoder at
-        ``vae_decode_batch`` where the mix decodes, the pose encoder); return
-        the seconds of one warm window step."""
-        p, sh, dev, dt = self.pipeline, self.shape, self.device, self.dtype
-        lat, ucfg = p.latent_size, self.config["unet"]
-        b = sh.unet_batch
-        gen = torch.Generator(device=dev).manual_seed(self.seed)
-
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device=dev).to(dt)
-
-        x = rnd(b, lat, lat, ucfg["in_channels"])
-        t = torch.full((b,), 500, device=dev, dtype=torch.int64)
-        tem = torch.zeros((b,), dtype=torch.int32, device=dev)
-        pose = rnd(b, lat, lat, ucfg["block_out_channels"][0]) \
-            if ucfg["enable_pose_encoder"] else None
-        px = rnd(p.vae_batch, self.size, self.size, 3).clamp(-1, 1)
-        nz = torch.randn((p.vae_batch, lat, lat, 4), generator=gen, device=dev)
-        for _ in range(2):
-            p.encode_images(px, nz)
-            if ucfg["enable_pose_encoder"]:
-                p.unet.pose_encoder(px)
-            if sh.decodes:
-                p.decode(rnd(p.vae_decode_batch, lat, lat, 4))
-            self._sync()
-            t0 = time.perf_counter()
-            for _ in range(sh.unet_calls_per_step):
-                p.unet(x, t, tem_indices=tem, num_frames=sh.rows_per_window, pose_features=pose)
-            self._sync()
-            step_s = time.perf_counter() - t0
-        return step_s
-
-    def _sync(self) -> None:
+    def sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -318,9 +262,5 @@ class Program:
         sl = self.pipeline.sliding
         is_cond = self.task_is_cond(sampler, task)
         inputs, targets = np.nonzero(is_cond)[0], np.nonzero(~is_cond)[0]
-        return ref_sampling.windows(targets, inputs, task.domain, sl.window_size,
-                                    sl.sliding_stride, sl.sliding_shift, sl.bidirectional)
-
-
-def _tuples(d: dict) -> dict:
-    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+        return ref_windows.windows(targets, inputs, task.domain, sl.window_size,
+                                   sl.sliding_stride, sl.sliding_shift, sl.bidirectional)

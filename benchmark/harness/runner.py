@@ -16,8 +16,8 @@ from benchmark.harness import check as chk
 from benchmark.harness import spec as sp
 from benchmark.harness import trace as tr
 from benchmark.harness import weights as W
-from benchmark.harness.program import Program, Recorder, reference_modules
-from benchmark.harness.work import Work
+from benchmark.harness.program import Program, Recorder
+from benchmark.reference import data as ref_data
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffuman4d_tpu")
 RANGES = {  # bench/* host ranges of a traced window, around public entry points
@@ -68,21 +68,22 @@ def _draw(rng: np.random.Generator, n: int, k: int) -> list[int]:
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
-        device="cuda", root=sp.ROOT, image_size=None, unet_overrides=None,
-        vae_overrides=None, control=False, fault=None, cache=None, limits=None) -> dict:
+        device="cuda", root=sp.ROOT, image_size=None, overrides=None, control=False,
+        fault=None, cache=None, limits=None) -> dict:
     """Returns {"result": the result line's object, "report": extra
     numbers} and, with ``control=True``, "control": the verdict on the
     control in the program's place ({"correct", "checks"}). ``fault``, a
     callable on the program, breaks its timed path (tests); ``cache`` holds
     the scenes and the jobs' outputs (default ``benchmark/.cache``);
-    ``limits`` replaces the cell's (the tests' tiny widths have their own)."""
+    ``overrides`` ({config key: {sub-key: value}}) and ``limits`` replace
+    the configuration's and the cell's (the tests' tiny widths)."""
     cell = sp.load_cell(cell_name, root)
     cache = cache or osp.join(root, "benchmark", ".cache")
     dev = torch.device(device)
-    prog = Program(cell, seed, dev, cache, image_size, unet_overrides, vae_overrides)
+    prog = Program(cell, seed, dev, cache, image_size, overrides)
     pipe, sh, tr_cfg = prog.pipeline, prog.shape, cell.traffic
     setup_parts = {"program": time.perf_counter() - t_start}
-    step_s = prog.warm_up()
+    step_s = prog.family.warm_up(prog)
     setup_parts["warm_up"] = time.perf_counter() - t_start - sum(setup_parts.values())
     task_s = prog.task_seconds(step_s)
     rng = np.random.default_rng([int(seed) & 0xFFFFFFFF, int(seed) >> 32])
@@ -189,7 +190,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
     if not resumed:
         S = len(first_sampler.spa_labels)
         cells = [(s, t) for s in range(S) for t in range(len(first_sampler.tem_labels))]
-        noise = chk.ref_data.init_noise(prog.seed, cells, pipe.latent_size)
+        noise = ref_data.init_noise(prog.seed, cells, pipe.latent_size)
         expect = noise.to(torch.bfloat16).float().numpy().reshape(start_pairs[0][0].shape)
         start_pairs = [(start_pairs[0][0], expect)]
         start = {"latents": expect, "t_idx": np.zeros(expect.shape[:2], np.int32),
@@ -214,11 +215,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
         pick = _draw(rng, latents.shape[0], CHECK_FRAMES)
         decodes = [(latents[pick].cpu(), np.asarray(images)[pick])]
     run_info = {
-        "config": prog.config, "seed": prog.seed, "device": dev,
-        "entries": W.spec(reference_modules(prog.config)),
+        "family": prog.family, "config": prog.config, "seed": prog.seed, "device": dev,
+        "entries": W.spec(prog.family.reference_modules(prog.config)),
         "scene_dir": osp.join(prog.data_root, prog.scene), "size": prog.size,
-        "latent": pipe.latent_size, "guidance": prog.config["guidance_scale"],
-        "scheduler": prog.config["scheduler"], "total_steps": sh.total_steps,
+        "latent": pipe.latent_size, "total_steps": sh.total_steps,
         "domain": sh.domain, "start": start_pairs, "steps": steps, "decodes": decodes,
         "chain": {"start": start, "tasks": chain_tasks, "steps": recorded,
                   "decodes": [lat.cpu() for lat, _ in rec.decodes[:len(chain_tasks)]],
@@ -253,6 +253,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
                     "tasks": rec_run["tasks"], "latent_steps": latent_steps,
                     "predicted_task_s": task_s, "warm_step_s": step_s, "check_s": check_s,
                     "setup_parts": setup_parts, "check_parts": check_parts, "spans": spans}
+    if trace:
+        report_extra.update(least_s_by_op=rec_run["least_s_by_op"],
+                            device_by_op=prof_red["device_by_op"])
     out = {"result": result, "report": report_extra}
     if control:
         # the control in the program's place: its numbers replace the
@@ -351,42 +354,17 @@ def _resumed_pairs(sampler, seeded: dict) -> list:
 
 
 def _work(prog: Program, tasks_run, sh) -> dict:
-    """Model FLOPs and attention least time of the window's work: every
-    window step's UNet forwards (CFG counted once per half), the VAE encodes
-    of conditional frames and skeletons, the pose encoder's frames and the
-    decodes, each frame counted once per job (what a cache would let it
-    skip is not work)."""
-    wk = Work(prog.config, prog.size)
-    f_u, a_u = wk.unet_forward(sh.rows_per_window, sh.rows_per_window)
-    halves = 2 if sh.cfg_on else 1
-    flops = sh.n_denoise * halves * f_u * sh.windows_per_task * len(tasks_run)
-    least = sh.n_denoise * halves * a_u * sh.windows_per_task * len(tasks_run)
-    f_e, a_e = wk.vae_encode()
-    f_d, a_d = wk.vae_decode()
-    seen: dict = {}
+    """The window's work as the model family counts it, from the tasks that
+    ran grouped by job: ``flops``, ``least_s_by_op`` (the least time of each
+    of the port's ``op/<name>`` ranges that the family counts) and
+    ``attn_least_s``, its attention entry."""
+    jobs: dict = {}
     for s, task in tasks_run:
-        labels = prog.task_labels(s, task)
-        key = id(s)
-        cond, skel = seen.setdefault(key, (set(), set()))
-        for i, lb in enumerate(labels):
-            c = (lb[1] in s.input_spa_labels) if task.domain == "spatial" else i < len(labels) // 2
-            if c:
-                cond.add(lb)
-            skel.add(lb)
-    n_cond = sum(len(c) for c, _ in seen.values())
-    n_skel = sum(len(k) for _, k in seen.values())
-    flops += n_cond * f_e
-    least += n_cond * a_e
-    if prog.config["unet"]["enable_pose_encoder"]:
-        flops += (n_skel + len(seen)) * wk.pose_encode()[0]
-    else:
-        flops += n_skel * f_e
-        least += n_skel * a_e
-    if sh.decodes:
-        n_dec = sum(len(s.target_spa_labels) for s in {id(s): s for s, _ in tasks_run}.values())
-        flops += n_dec * f_d
-        least += n_dec * a_d
-    return {"flops": flops, "attn_least_s": least}
+        job = jobs.setdefault(id(s), {"tasks": [], "targets": len(s.target_spa_labels)})
+        job["tasks"].append((prog.task_labels(s, task), prog.task_is_cond(s, task)))
+    out = prog.family.work(prog.config, prog.size, sh, list(jobs.values()))
+    return {"flops": out["flops"], "least_s_by_op": out["least_s_by_op"],
+            "attn_least_s": out["least_s_by_op"].get("attention")}
 
 
 def _device(dev, peak: int) -> dict:

@@ -1,7 +1,6 @@
-"""Plain reference of the sliding-window schedule, the schedulers and one
-window step (zju3dv/Diffuman4D ``pipeline_diffuman4d.py``, diffusers
-``DDIMScheduler`` and ``DPMSolverMultistepScheduler`` (2M, x0 prediction
-history), in fp32).
+"""Plain reference of the Diffuman4D family's schedulers and one window step
+(zju3dv/Diffuman4D ``pipeline_diffuman4d.py``, diffusers ``DDIMScheduler``
+and ``DPMSolverMultistepScheduler`` (2M, x0 prediction history), in fp32).
 
 A window step denoises the window's rows once: the conditional rows carry
 their clean VAE latents, every row its Plücker rays and, per configuration,
@@ -16,29 +15,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-
-def step_counts(window: int, stride: int, n_denoise: int, bidirectional: bool,
-                rounds: int) -> tuple[int, int]:
-    """(steps per round, steps per frame) of a target latent."""
-    per = window * n_denoise // stride * (2 if bidirectional else 1)
-    return per, per * rounds
-
-
-def windows(targets, inputs, domain: str, window: int, stride: int, shift: int = 0,
-            bidirectional: bool = False) -> np.ndarray:
-    """(n_windows, L) rows of each window: inputs first, then the targets
-    stepped; a temporal window's inputs are the condition track's frames
-    aligned with its targets."""
-    targets = np.asarray(targets, np.int64)
-    n = len(targets)
-    out = []
-    for direction in ((-1, 1) if bidirectional else (-1,)):
-        for s in range(shift, shift + n, stride):
-            tw = targets[(np.arange(window) - s * direction) % n]
-            iw = np.asarray(inputs, np.int64) if domain == "spatial" else tw - len(inputs)
-            out.append(np.concatenate([iw, tw]))
-    return np.stack(out)
 
 
 class Schedule:

@@ -14,6 +14,7 @@ if str(ROOT) not in sys.path:
 TINY_UNET = dict(block_out_channels=[8, 16, 16, 16], num_attention_heads=[1, 2, 2, 2],
                  layers_per_block=1, norm_num_groups=4)
 TINY_VAE = dict(block_out_channels=[4, 4, 8, 8], layers_per_block=1)
+TINY = {"unet": TINY_UNET, "vae": TINY_VAE}  # overrides of a d4d_multiview configuration
 # Limits at the tiny widths, from CPU runs on seeds 100-105 (the bf16
 # program's largest reading / the float8 control's smallest): pose-demo3d
 # step 0.080 / 0.438, decode 0.733 / 5.76 levels; skel-temporal step
@@ -40,14 +41,14 @@ def one_thread():
 @pytest.fixture
 def tiny_run(tmp_path):
     """``run(cell, seed, **kw)``: one run of ``cell`` on the CPU at the tiny
-    widths and 64^2 images, one task or job, held to ``TINY_LIMITS``."""
+    widths and 64^2 images, one task or job, held to ``TINY_LIMITS`` (of
+    the cell ``limits_of``, if given; ``root`` may be another checkout)."""
     import time
 
     from benchmark.harness import runner
 
     def run(cell, seed=7, **kw):
         return runner.run(cell, seed, 0.5, kw.pop("trace", False), time.perf_counter(),
-                          device="cpu", image_size=64, unet_overrides=TINY_UNET,
-                          vae_overrides=TINY_VAE, cache=str(tmp_path),
-                          limits=TINY_LIMITS[cell], **kw)
+                          device="cpu", image_size=64, overrides=TINY, cache=str(tmp_path),
+                          limits=TINY_LIMITS[kw.pop("limits_of", cell)], **kw)
     return run

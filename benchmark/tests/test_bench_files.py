@@ -80,3 +80,59 @@ def test_a_mismatched_cell_file_is_refused(tmp_path):
     path.write_text(json.dumps(dict(data, chips=4)))
     with pytest.raises(ValueError):
         sp.load_cell(name, tmp_path)
+
+
+# A second model family, as a later configuration of another architecture
+# would bring it: a file under families/ (here the Diffuman4D family under
+# another name, with one configuration key of its own), a configuration
+# naming it, a cell, and their entries in BENCHMARK.json.
+SECOND_FAMILY = '''"""The Diffuman4D family under another name, with a key of its own."""
+from pathlib import Path
+
+from benchmark.harness import spec as _sp
+
+_base = _sp.load_family("d4d_multiview", Path(__file__).resolve().parents[2])
+globals().update({k: v for k, v in vars(_base).items() if not k.startswith("__")})
+KEYS = _base.KEYS | {"note"}
+'''
+
+
+def _with_second_family(root):
+    shutil.copytree(sp.BENCH_DIR, root / "benchmark",
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    (root / "benchmark" / "families" / "d4d_copy.py").write_text(SECOND_FAMILY)
+    base = sp.load_cell("pose-demo3d")
+    config = dict(base.config, name="copy-pose-ddim", family="d4d_copy", note="a copy")
+    (root / "benchmark" / "configs" / "copy-pose-ddim.json").write_text(json.dumps(config))
+    (root / "benchmark" / "workloads" / "copy-demo3d.json").write_text(
+        json.dumps(dict(base.workload, config="copy-pose-ddim")))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append(dict(bench["configs"][0], name="copy-pose-ddim",
+                                 file="benchmark/configs/copy-pose-ddim.json"))
+    bench["workloads"].append(dict(base.entry, name="copy-demo3d", config="copy-pose-ddim"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return config
+
+
+def test_a_configuration_of_a_second_family_added_as_files_runs(tmp_path, tiny_run):
+    """The cell of a second family loads with the family's own keys and
+    its tiny run is correct: nothing that was there needed an edit."""
+    root = tmp_path / "checkout"
+    _with_second_family(root)
+    c = sp.load_cell("copy-demo3d", root)
+    assert c.family.__name__ == "bench_family_d4d_copy" and c.config["note"] == "a copy"
+    out = tiny_run("copy-demo3d", root=root, limits_of="pose-demo3d")
+    assert out["result"]["correct"], out["result"]["checks"]
+
+
+@pytest.mark.parametrize("family,error", [
+    ("no_such_family", "no_such_family"),  # a family with no file
+    (None, "note"),  # the default family does not read the second family's key
+])
+def test_a_configuration_naming_a_missing_family_or_an_unread_key_is_refused(
+        tmp_path, family, error):
+    config = _with_second_family(tmp_path)
+    config = {k: v for k, v in dict(config, family=family).items() if v is not None}
+    (tmp_path / "benchmark" / "configs" / "copy-pose-ddim.json").write_text(json.dumps(config))
+    with pytest.raises(ValueError, match=error):
+        sp.load_cell("copy-demo3d", tmp_path)

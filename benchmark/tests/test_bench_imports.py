@@ -54,3 +54,29 @@ def test_forbidden_modules_compares_whole_names(monkeypatch):
     assert runner.forbidden_modules() == []
     monkeypatch.setitem(sys.modules, "jax.numpy", sys)
     assert runner.forbidden_modules() == ["jax.numpy"]
+
+
+# What only a model family may import: the port's models, schedulers and
+# pipeline, and the family's plain reference (``benchmark/families/``)
+MODEL_MODULES = ("diffuman4d_torch.models", "diffuman4d_torch.schedulers",
+                 "diffuman4d_torch.sampling.pipeline", "benchmark.reference.models",
+                 "benchmark.reference.sampling", "benchmark.families")
+
+
+def _imported_names(path):
+    """Every module an import statement of ``path`` names, ``from a import
+    b`` as both ``a`` and ``a.b``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("path", sorted((sp.BENCH_DIR / "harness").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_the_core_names_no_model_module(path):
+    named = [m for m in _imported_names(path)
+             if any(m == x or m.startswith(x + ".") for x in MODEL_MODULES)]
+    assert not named

@@ -31,12 +31,19 @@ def test_run_is_correct_and_counts_the_schedule(tiny_run, cell):
 
 
 def test_traced_run_reports_the_per_layer_metrics(tiny_run):
-    res = tiny_run("skel-temporal", trace=True)["result"]
+    out = tiny_run("skel-temporal", trace=True)
+    res, rep = out["result"], out["report"]
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "breakdown",
                          "checks"]
-    # the CPU has no device trace: the readers of device time stay silent
-    assert set(res["metrics"]) == {"outside_denoise_pct", "window_step_ms", "mfu"}
+    # the CPU has no device trace: the readers of device time stay silent,
+    # every other per-layer metric of the cell reads
+    cell = sp.load_cell("skel-temporal")
+    assert set(res["metrics"]) == {m["name"] for m in cell.per_layer
+                                   if m["source"] != "device_trace"}
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+    # the work count by op; no device time by op without a device trace
+    assert set(rep["least_s_by_op"]) == {"attention"} and rep["least_s_by_op"]["attention"] > 0
+    assert rep["device_by_op"] == {}
 
 
 def _unchanged(prog):

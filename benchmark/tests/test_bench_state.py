@@ -7,12 +7,12 @@ import torch
 from benchmark.harness import spec as sp
 from benchmark.harness.program import Program
 
-from conftest import TINY_UNET, TINY_VAE
+from conftest import TINY
 
 
 def test_seeded_state_resumes_into_round_two(tmp_path):
     cell = sp.load_cell("skel-temporal")
-    prog = Program(cell, 5, torch.device("cpu"), str(tmp_path), 64, TINY_UNET, TINY_VAE)
+    prog = Program(cell, 5, torch.device("cpu"), str(tmp_path), 64, TINY)
     seeded = prog.seed_state()
     s = prog.build_sampler(0)
     assert s._completed_rounds == 1 and s.all_tasks[1][0].domain == "temporal"
