@@ -196,7 +196,9 @@ Phases:
    computes the same function (a yardstick, called nowhere in the port) and
    the card's bound for the work, at a fixed list of the paths' shapes (the
    d = 64 kernel at the table's blocks; the single pass at S 256, 512 and
-   1,024, a ragged S and its largest Sk, 4,096) plus every (shape, epilogue
+   1,024, a ragged S and its largest Sk, 4,096, and batched at SVD-xt's
+   frames' self-attention, S 25 over B·H up to 92,160 rows; the fused conv
+   and the GroupNorm pair also at SVD-xt's UNet shapes) plus every (shape, epilogue
    variant or block sizes) the tune, bench, slice, cli, demo4d, train,
    variants, waves, train_dp and units phases launched, and context parallelism's attention shapes
    (``CP_ATTN64_SHAPES``: Sq = Sk * groups / n queries against the gathered
@@ -294,7 +296,12 @@ SINGLE_PASS_SHAPES = [(32, 256, 256, 20, 128), (32, 512, 512, 20, 128),
                       (32, 1024, 1024, 20, 128), (32, 777, 777, 20, 64),
                       (4, 200, 4096, 20, 128)]
 SINGLE_PASS_BATCHED_SHAPES = [(32, 256, 256, 20, 128, 5), (32, 512, 512, 20, 128, 4),
-                              (32, 1024, 1024, 20, 128, 8), (24, 300, 700, 10, 64, 4)]
+                              (32, 1024, 1024, 20, 128, 8), (24, 300, 700, 10, 64, 4),
+                              # SVD-xt's frames' self-attention (svd_tem@{96,48,24,12}sq
+                              # at the table's blocks): 25 frames at each pixel of a
+                              # CFG-fused clip, B * H 92,160 / 46,080 / 23,040 / 5,760
+                              (18432, 25, 25, 5, 64, 8), (4608, 25, 25, 10, 64, 8),
+                              (1152, 25, 25, 20, 64, 8), (288, 25, 25, 20, 64, 8)]
 # demo4d: the demo_4d preset's schedule on the smallest grid its window
 # admits with more than one round, 16 cameras (12 targets) x 12 frames
 D4D_CAMERAS, D4D_FRAMES, D4D_INPUTS = 16, 12, (1, 5, 9, 13)
@@ -359,8 +366,9 @@ ATTN_NAMES = {"flash_d64": "flash_fwd_d64", "flash_d512": "flash_fwd_d512",
               "single_pass": "flash_fwd_single_pass",
               "single_pass_batched": "flash_fwd_single_pass_batched",
               "two_level": "flash_fwd_two_level"}
-# (B, H, W, Cin, Cout): the VAE stages at 1024^2 images, and two resnets
-# that change the channel count
+# (B, H, W, Cin, Cout): the VAE stages at 1024^2 images, two resnets
+# that change the channel count, and SVD-xt's UNet resnets at its two
+# largest levels (a CFG-fused 25-frame clip, 96^2 and 48^2 latents)
 CONV_SHAPES = [
     (2, 1024, 1024, 128, 128),
     (2, 512, 512, 256, 256),
@@ -368,13 +376,17 @@ CONV_SHAPES = [
     (2, 128, 128, 512, 512),
     (2, 1024, 1024, 256, 128),
     (2, 512, 512, 512, 256),
+    (50, 96, 96, 320, 320),
+    (50, 48, 48, 640, 640),
 ]
 # (B, H, W, C, groups) of the GroupNorm pair: the UNet's levels at a CFG
 # window (batch 32 at 128^2 latents: 320, 640 and 1,280 channels), a temporal
-# step's up-block concatenation (batch 24, 960 channels) and the VAE decoder's
-# last stage at 1024^2
+# step's up-block concatenation (batch 24, 960 channels), the VAE decoder's
+# last stage at 1024^2, and SVD-xt's temporal resnets' GroupNorm over a
+# clip's frames as the (B, F * H, W, C) view at its two largest levels
 GN_SHAPES = [(32, 128, 128, 320, 32), (32, 64, 64, 640, 32), (32, 32, 32, 1280, 32),
-             (24, 128, 128, 960, 32), (2, 1024, 1024, 128, 32)]
+             (24, 128, 128, 960, 32), (2, 1024, 1024, 128, 32),
+             (2, 25 * 96, 96, 320, 32), (2, 25 * 48, 48, 640, 32)]
 # (B, S, H) at head dim 64 of the train step (B = 1 window of L = 12 frames
 # over 128^2 latents): per-frame and 3D attention at each level
 TRAIN_ATTN_SHAPES = [

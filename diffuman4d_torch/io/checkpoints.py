@@ -17,7 +17,9 @@ A diffusers directory (``unet/``, ``vae/``, ``scheduler/``, each with its
 counterparts of the JAX package's functions of the same names: a directory
 either package writes loads in the other. The safetensors files are read
 and written with numpy (:func:`read_safetensors`, :func:`write_safetensors`),
-without the ``safetensors`` package.
+without the ``safetensors`` package. Stable Video Diffusion's directories
+(``UNetSpatioTemporalConditionModel``, ``AutoencoderKLTemporalDecoder``) go
+the same way, the class names telling the configurations apart.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ import numpy as np
 import torch
 
 from diffuman4d_torch.models.unet import UNetConfig
+from diffuman4d_torch.models.unet_spatiotemporal import SVDUNetConfig
 from diffuman4d_torch.models.vae import VAEConfig
+
+SVD_UNET_CLASS = "UNetSpatioTemporalConditionModel"
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -296,11 +301,15 @@ def save_hf_checkpoint(model_dir: str, unet: torch.nn.Module, vae: torch.nn.Modu
     write_safetensors(osp.join(model_dir, "vae", _WEIGHTS[0]), _numpy_state(vae))
 
     ucfg = dataclasses.asdict(unet.config)
-    ucfg["_class_name"] = "UNetMultiviewConditionModel"
-    # diffusers' naming bug: its attention_head_dim is the per-stage head count
-    ucfg["attention_head_dim"] = list(ucfg.pop("num_attention_heads"))
+    svd = isinstance(unet.config, SVDUNetConfig)
+    if svd:
+        ucfg["_class_name"] = SVD_UNET_CLASS
+    else:
+        ucfg["_class_name"] = "UNetMultiviewConditionModel"
+        # diffusers' naming bug: its attention_head_dim is the per-stage head count
+        ucfg["attention_head_dim"] = list(ucfg.pop("num_attention_heads"))
     vcfg = dataclasses.asdict(vae.config)
-    vcfg["_class_name"] = "AutoencoderKL"
+    vcfg["_class_name"] = "AutoencoderKLTemporalDecoder" if svd else "AutoencoderKL"
     for sub, name, cfg in (("unet", "config.json", ucfg), ("vae", "config.json", vcfg),
                            ("scheduler", "scheduler_config.json",
                             scheduler_config or {"_class_name": "DDIMScheduler"})):
@@ -333,6 +342,14 @@ def unet_config_from_hf(cfg: dict) -> UNetConfig:
     )
 
 
+def svd_unet_config_from_hf(cfg: dict) -> SVDUNetConfig:
+    """diffusers ``UNetSpatioTemporalConditionModel`` ``config.json`` ->
+    SVDUNetConfig (its defaults for absent keys)."""
+    fields = {f.name for f in dataclasses.fields(SVDUNetConfig)}
+    return SVDUNetConfig(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in cfg.items() if k in fields})
+
+
 def vae_config_from_hf(cfg: dict) -> VAEConfig:
     return VAEConfig(
         in_channels=cfg.get("in_channels", 3),
@@ -353,8 +370,9 @@ def load_hf_checkpoint(model_dir: str, dtype: torch.dtype = torch.bfloat16):
     gives the numbers flax's cast at use gives.
 
     Returns ``(unet_config, vae_config, scheduler_config, unet_state,
-    vae_state)``; the states map diffusers names to CPU tensors of
-    ``dtype``."""
+    vae_state)`` (an ``SVDUNetConfig`` where ``unet/config.json`` names
+    ``UNetSpatioTemporalConditionModel``); the states map diffusers names
+    to CPU tensors of ``dtype``."""
     def read_json(*parts):
         with open(osp.join(model_dir, *parts)) as f:
             return json.load(f)
@@ -366,7 +384,10 @@ def load_hf_checkpoint(model_dir: str, dtype: torch.dtype = torch.bfloat16):
                 return {k: torch.from_numpy(v).to(dtype) for k, v in read_safetensors(path).items()}
         raise FileNotFoundError(f"no safetensors found under {model_dir}/{sub}")
 
-    return (unet_config_from_hf(read_json("unet", "config.json")),
+    ucfg = read_json("unet", "config.json")
+    from_hf = svd_unet_config_from_hf if ucfg.get("_class_name") == SVD_UNET_CLASS \
+        else unet_config_from_hf
+    return (from_hf(ucfg),
             vae_config_from_hf(read_json("vae", "config.json")),
             read_json("scheduler", "scheduler_config.json"),
             weights("unet"), weights("vae"))

@@ -21,6 +21,7 @@ from diffuman4d_torch.ops.attention import dot_product_attention
 from diffuman4d_torch.ops.conv import conv3x3, conv3x3_ok
 from diffuman4d_torch.ops.groupnorm import group_norm, groupnorm_affine
 from diffuman4d_torch.ops.resize import upsample_nearest_2x
+from diffuman4d_torch.utils.tracing import profiler_range
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -54,12 +55,13 @@ def timestep_sinusoidal(
 
 
 class TimestepEmbedding(nn.Module):
-    """Two-layer MLP over sinusoidal features."""
+    """Two-layer MLP over sinusoidal features (``out_dim``, default
+    ``time_embed_dim``: the width of ``linear_2``'s output)."""
 
-    def __init__(self, in_dim: int, time_embed_dim: int):
+    def __init__(self, in_dim: int, time_embed_dim: int, out_dim: int | None = None):
         super().__init__()
         self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))
@@ -85,32 +87,46 @@ class GroupNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention (diffusers ``Attention``): qkv without
-    bias, output projection with bias. With ``cp`` (an
+    """Multi-head attention (diffusers ``Attention``): qkv without bias,
+    output projection with bias. Self-attention, or with
+    ``cross_attention_dim`` cross-attention: K and V from ``context``
+    (B, Sk, cross_attention_dim), or from ``context`` of B / n rows for n
+    consecutive query rows each (K and V are projected once per context row
+    and repeated). ``op_range``, where set, is a profiler range around the
+    attention call alone. With ``cp`` (an
     ``ops.context_parallel.ContextParallel``) the queries are this rank's
     frames and K/V are gathered from the ranks of its mesh axis."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
-                 attn_implementation: str = "auto"):
+                 attn_implementation: str = "auto", cross_attention_dim: int | None = None):
         super().__init__()
         inner = num_heads * head_dim
+        kv_dim = cross_attention_dim or query_dim
         self.num_heads, self.head_dim = num_heads, head_dim
         self.attn_implementation = attn_implementation
         self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(query_dim, inner, bias=False)
-        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.op_range: str | None = None
 
-    def forward(self, x: torch.Tensor, cp=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cp=None, context: torch.Tensor | None = None
+                ) -> torch.Tensor:
         b, s, _ = x.shape
+        kv = x if context is None else context
         shape = (b, s, self.num_heads, self.head_dim)
+        kv_shape = (kv.shape[0], kv.shape[1], self.num_heads, self.head_dim)
         q = self.to_q(x).reshape(shape)
-        k = self.to_k(x).reshape(shape)
-        v = self.to_v(x).reshape(shape)
+        k = self.to_k(kv).reshape(kv_shape)
+        v = self.to_v(kv).reshape(kv_shape)
+        if kv.shape[0] != b:
+            k = k.repeat_interleave(b // kv.shape[0], dim=0)
+            v = v.repeat_interleave(b // kv.shape[0], dim=0)
         if cp is not None:
             out = cp.attend(q, k, v, implementation=self.attn_implementation)
         else:
-            out = dot_product_attention(q, k, v, implementation=self.attn_implementation)
+            with profiler_range(self.op_range):
+                out = dot_product_attention(q, k, v, implementation=self.attn_implementation)
         out = out.reshape(b, s, -1)
         return self.to_out[0](out)
 

@@ -30,6 +30,12 @@ launch counters show which kernel ran. The kernel wrappers pick the device:
 a CPU tensor takes the plain version, a CUDA tensor the kernel. Any other
 head dim takes the plain version on the CPU and raises on CUDA.
 
+Two routes of the port have no TPU counterpart: one key (Sk = 1, the
+one-token cross-attention of a spatio-temporal UNet) returns V through
+:func:`flash_attention.single_key`, and a key row shorter than the skewed
+kernel's score chunk at head dim 64 takes the single pass (:func:`route`'s
+gate on Sk). The table is keyed by Sq alone.
+
 ``implementation="pallas"`` (the JAX package's forced v1) goes to the
 kernel of the head dim; ``"math"`` is the plain version; ``"train"`` is
 the differentiable path: head dim 64 goes to :func:`flash_attention_train`
@@ -123,13 +129,22 @@ def _table_lookup(s: int, d: int, bh: int):
 
 
 def route(q_shape, k_shape) -> tuple[str, dict]:
-    """The kernel (a key of ``flash_attention.KERNELS``) and block sizes
-    that ``implementation="auto"`` uses for these shapes at head dim 64 or
-    512. Pure: it reads the table and nothing of the tensors."""
+    """The kernel (a key of ``flash_attention.KERNELS``, or
+    ``"single_key"``) and block sizes that ``implementation="auto"`` uses
+    for these shapes at head dim 64 or 512. Pure: it reads the table and
+    nothing of the tensors.
+
+    One key (Sk = 1) takes :func:`flash_attention.single_key`, the same
+    function bit for bit. The table is keyed by Sq; the gate on Sk keeps a
+    shape off a kernel whose key tiles it does not fill: the skewed and
+    two-level kernels take Sk >= their ``block_k`` (the default route's
+    too), and a shorter key row at head dim 64 goes to the single pass."""
     b, s, h, d = q_shape
     sk = k_shape[1]
     if d not in DEFAULT_KERNEL:
         raise ValueError(f"no attention kernel for head dim {d} (have 64 and 512)")
+    if sk == 1:
+        return "single_key", {}
     e = _table_lookup(s, d, b * h)
     if e is not None:
         impl, bq = e["impl"], e.get("block_q")
@@ -142,8 +157,10 @@ def route(q_shape, k_shape) -> tuple[str, dict]:
         if impl in ("two_level", "flash_d64"):
             blocks = (bq, e.get("block_k_major"), e["block_k"])
             built = fa.two_level_ok if impl == "two_level" else fa.skew_ok
-            if built(d, *blocks):
+            if built(d, *blocks) and sk >= e["block_k"]:
                 return impl, dict(zip(fa.BLOCK_PARAMS[impl], blocks))
+    if d == 64 and sk < fa.SKEW_DEFAULT[2]:
+        return "single_pass", {"block_q": fa.SINGLE_PASS_BLOCK_Q[0 if s <= 64 else 1]}
     return DEFAULT_KERNEL[d], {}
 
 
@@ -182,4 +199,6 @@ def dot_product_attention(
     if implementation == "pallas":
         return fa.KERNELS[DEFAULT_KERNEL[d]](q, k, v)
     name, params = route(q.shape, k.shape)
+    if name == "single_key":
+        return fa.single_key(q, k, v)
     return fa.KERNELS[name](q, k, v, **params)

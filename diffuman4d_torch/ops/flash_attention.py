@@ -113,16 +113,18 @@ def _check_shapes(q, k, v, head_dim: int) -> None:
 
 
 def _launch(wrapper, q, k, v, fn_name: str, c_args: tuple, blocks: tuple = (),
-            lib: str = "flash_attn_skew_hopper"):
+            lib: str = "flash_attn_skew_hopper", rows_on_grid_y: bool = True):
     """Launch C entry ``fn_name`` of library ``lib`` on (q, k, v, out, B, H,
-    Sq, Sk, *c_args, stream) and count it under ``(B, Sq, Sk, H, *blocks)``."""
+    Sq, Sk, *c_args, stream) and count it under ``(B, Sq, Sk, H, *blocks)``.
+    A kernel that puts B * H on gridDim.y (``rows_on_grid_y``) raises above
+    its 65,535; the single pass walks its rows on gridDim.x."""
+    B, Sq, H, D = q.shape
+    if rows_on_grid_y and B * H > 65535:
+        raise ValueError(f"flash attention: B*H = {B * H} exceeds the grid limit")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.dtype != torch.bfloat16:
             raise ValueError(f"flash attention: {name} must be a bf16 CUDA tensor, got "
                              f"{x.dtype} on {x.device}")
-    B, Sq, H, D = q.shape
-    if B * H > 65535:
-        raise ValueError(f"flash attention: B*H = {B * H} exceeds the grid limit")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     for x in (q, k, v, out):
@@ -181,7 +183,8 @@ def flash_attention_single_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     return _launch(flash_attention_single_pass, q, k, v, "flash_attn_single_pass",
-                   (block_q, 1), (block_q,), lib="flash_attn_single_hopper")
+                   (block_q, 1), (block_q,), lib="flash_attn_single_hopper",
+                   rows_on_grid_y=False)
 
 
 def flash_attention_single_pass_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,7 +203,8 @@ def flash_attention_single_pass_batched(q: torch.Tensor, k: torch.Tensor, v: tor
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     return _launch(flash_attention_single_pass_batched, q, k, v, "flash_attn_single_pass",
-                   (block_q, block_b), (block_q, block_b), lib="flash_attn_single_hopper")
+                   (block_q, block_b), (block_q, block_b), lib="flash_attn_single_hopper",
+                   rows_on_grid_y=False)
 
 
 def flash_attention_two_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,6 +225,26 @@ def flash_attention_two_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    lib="flash_attn_hopper")
 
 
+def single_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention over one key (Sk = 1): softmax over one score is exactly 1,
+    so every query row's output is that key's value, and
+    :func:`attention_plain` gives ``v`` bit for bit (for finite scores). A
+    route of the dispatch, not a kernel: it writes ``v`` over the Sq rows
+    (one copy) on any device and counts the call in ``.launches`` and, per
+    ``(B, Sq, Sk, H)``, in ``.shapes``."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 4:
+            raise ValueError(f"single-key attention: {name} shape {tuple(x.shape)} is not "
+                             f"(B, S, H, D)")
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape != (B, 1, H, D):
+        raise ValueError(f"single-key attention: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} are not one key per (batch, head)")
+    out = v.expand(B, Sq, H, D).contiguous()
+    cuda_build.count_launch(single_key, (B, Sq, 1, H))
+    return out
+
+
 # the port's attention kernels by their dispatch names, and the block-size
 # arguments of each (the order of the block sizes in its ``.shapes`` keys)
 KERNELS = {
@@ -235,6 +259,6 @@ BLOCK_PARAMS = {"flash_d64": ("block_q", "block_k_major", "block_k"), "flash_d51
                 "single_pass_batched": ("block_q", "block_b"),
                 "two_level": ("block_q", "block_k_major", "block_k")}
 # each wrapper counts its launches, in total and per (B, Sq, Sk, H, *blocks)
-for _wrapper in KERNELS.values():
+for _wrapper in (*KERNELS.values(), single_key):
     _wrapper.launches = 0
     _wrapper.shapes = Counter()

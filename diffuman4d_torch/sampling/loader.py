@@ -11,6 +11,13 @@ Random weights follow flax's default scales: dense and conv kernels ~ N(0, 1/fan
 zero, norm scales one; the pose encoder's convs use He scaling
 N(0, 2/fan_in), its ``final_proj`` and the temporal head's ``linear_2``
 start at zero, its ``scale`` at 2.0 -- as the JAX package initialises them.
+
+Stable Video Diffusion (``UNetSpatioTemporalConditionModel`` and
+``AutoencoderKLTemporalDecoder``) is built the same two ways: from a
+diffusers directory whose ``unet/config.json`` names that class, or with
+random weights at ``model.arch=svd-xt`` (the published widths) or
+``svd-tiny``; it runs in :class:`SVDPipeline` with the published Euler
+scheduler (Karras sigmas, v-prediction) unless the checkpoint has one.
 """
 
 from __future__ import annotations
@@ -25,8 +32,15 @@ from torch import nn
 from diffuman4d_torch.configs.presets import DataConfig, ModelConfig, SamplerConfig
 from diffuman4d_torch.models.layers import GroupNorm
 from diffuman4d_torch.models.unet import UNetConfig, UNetMultiviewCondition
+from diffuman4d_torch.models.unet_spatiotemporal import (
+    AlphaBlender,
+    SVDUNetConfig,
+    UNetSpatioTemporalConditionModel,
+)
 from diffuman4d_torch.models.vae import AutoencoderKL, VAEConfig
+from diffuman4d_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 from diffuman4d_torch.sampling.pipeline import Diffuman4DPipeline, SlidingConfig
+from diffuman4d_torch.sampling.svd_pipeline import SVD_SCHEDULER_CONFIG, SVDPipeline
 from diffuman4d_torch.schedulers.diffusion import Scheduler, SchedulerConfig, from_config
 
 log = logging.getLogger(__name__)
@@ -39,6 +53,13 @@ ATTN_IMPLEMENTATIONS = {"auto": "auto", "pallas": "pallas", "math": "math", "xla
 TINY_UNET = dict(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
                  layers_per_block=1, norm_num_groups=4)
 TINY_VAE = dict(block_out_channels=(4, 4, 8, 8), layers_per_block=1)
+# model.arch=svd-xt | svd-tiny without a checkpoint: SVD's UNet widths
+SVD_ARCHS = {
+    "svd-xt": {},
+    "svd-tiny": dict(block_out_channels=(8, 16, 16, 16), num_attention_heads=(1, 2, 2, 2),
+                     layers_per_block=1, norm_num_groups=4, cross_attention_dim=16,
+                     addition_time_embed_dim=8, projection_class_embeddings_input_dim=24),
+}
 
 
 def _fan_in(w: torch.Tensor) -> int:
@@ -48,7 +69,7 @@ def _fan_in(w: torch.Tensor) -> int:
 @torch.no_grad()
 def _init_module(model: nn.Module, gen: torch.Generator) -> None:
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             w = mod.weight
             w.copy_(torch.randn(w.shape, generator=gen, device=gen.device)
                     / math.sqrt(_fan_in(w)))
@@ -57,6 +78,8 @@ def _init_module(model: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(mod, (GroupNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, AlphaBlender):
+            mod.mix_factor.fill_(mod.init_alpha)
 
 
 @torch.no_grad()
@@ -95,6 +118,17 @@ def _finish(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module.to(dtype=dtype, memory_format=torch.channels_last).eval()
 
 
+def finish_svd(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """:func:`_finish` for a module with 3D convs: its 2D conv weights
+    channels-last, a 3D conv's weight in its own layout."""
+    module = module.to(dtype=dtype).eval()
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() == 4:
+                p.data = p.data.contiguous(memory_format=torch.channels_last)
+    return module
+
+
 def build_models(unet_config: UNetConfig = UNetConfig(), vae_config: VAEConfig = VAEConfig(),
                  device: torch.device | str = "cuda", dtype: torch.dtype = torch.bfloat16,
                  seed: int = 0, attn_implementation: str = "auto",
@@ -105,6 +139,26 @@ def build_models(unet_config: UNetConfig = UNetConfig(), vae_config: VAEConfig =
     unet, vae = _empty_models(unet_config, vae_config, device, attn_implementation)
     init_random_params(unet, vae, seed)
     return _finish(unet, dtype), _finish(vae, dtype)
+
+
+def build_svd_models(unet_config: SVDUNetConfig = SVDUNetConfig(),
+                     vae_config: VAEConfig = VAEConfig(), device: torch.device | str = "cuda",
+                     dtype: torch.dtype = torch.bfloat16, seed: int = 0, state=None):
+    """SVD's UNet and temporal-decoder VAE on ``device`` in ``dtype``, eval
+    mode: ``state`` ((unet, vae) state dicts) loaded, else random weights
+    drawn on the device (the mixes at their constructors' values)."""
+    with torch.device("meta"):
+        unet = UNetSpatioTemporalConditionModel(unet_config)
+        vae = AutoencoderKLTemporalDecoder(vae_config)
+    unet, vae = unet.to_empty(device=device), vae.to_empty(device=device)
+    if state is None:
+        gen = torch.Generator(device=unet.conv_in.weight.device).manual_seed(seed)
+        _init_module(unet, gen)
+        _init_module(vae, gen)
+    else:
+        for module, sd in zip((unet, vae), state):
+            module.to(dtype).load_state_dict(sd)
+    return finish_svd(unet, dtype), finish_svd(vae, dtype)
 
 
 def sliding_from(cfg: SamplerConfig) -> SlidingConfig:
@@ -172,10 +226,28 @@ def load_pipeline(
         unet_config, vae_config, sched_cfg, unet_state, vae_state = load_hf_checkpoint(
             model_dir, dtype=DTYPES[model_cfg.param_dtype])
         scheduler = from_config(sched_cfg)
+        if isinstance(unet_config, SVDUNetConfig):
+            unet, vae = build_svd_models(unet_config, vae_config, device, dtype,
+                                         state=(unet_state, vae_state))
+            return SVDPipeline(unet, vae, scheduler, sliding=sliding,
+                               image_size=data_cfg.height, cond_seed=sampler_cfg.seed,
+                               device=device)
         unet, vae = _empty_models(unet_config, vae_config, device, attn)
         for module, state in ((unet, unet_state), (vae, vae_state)):
             module.to(dtype).load_state_dict(state)
         unet, vae = _finish(unet, dtype), _finish(vae, dtype)
+    elif model_cfg.arch in SVD_ARCHS:
+        log.warning("model_dir %s has no checkpoint -- using RANDOM-INIT %s weights",
+                    model_dir, model_cfg.arch)
+        pdt = torch.float32 if dtype == torch.float32 else DTYPES[model_cfg.param_dtype]
+        tiny = model_cfg.arch == "svd-tiny"
+        unet, vae = build_svd_models(SVDUNetConfig(**SVD_ARCHS[model_cfg.arch]),
+                                     VAEConfig(**TINY_VAE) if tiny else VAEConfig(), device,
+                                     pdt, sampler_cfg.seed)
+        unet, vae = finish_svd(unet, dtype), finish_svd(vae, dtype)
+        return SVDPipeline(unet, vae, from_config(SVD_SCHEDULER_CONFIG), sliding=sliding,
+                           image_size=data_cfg.height, cond_seed=sampler_cfg.seed,
+                           device=device)
     else:
         log.warning(
             "model_dir %s has no checkpoint -- using RANDOM-INIT weights "

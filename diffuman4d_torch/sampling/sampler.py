@@ -154,7 +154,8 @@ class SlidingIterativeSampler:
                              f"({len(self.target_spa_labels)})")
         if len(self.target_spa_labels) % cfg.sliding_stride != 0:
             raise ValueError("num target cameras % sliding_stride != 0")
-        if len(self.tem_labels) % cfg.sliding_stride != 0:
+        # the frames are slid over only in a temporal round (round 2 on)
+        if cfg.alternation_rounds > 1 and len(self.tem_labels) % cfg.sliding_stride != 0:
             raise ValueError("num frames % sliding_stride != 0")
         if cfg.alternation_rounds > 1 and cfg.window_size > len(self.tem_labels):
             raise ValueError("window_size must be <= num frames when alternation_rounds > 1")

@@ -38,6 +38,34 @@ class SchedulerConfig:
     variance_type: str = "fixed_small"
 
 
+@dataclass(frozen=True)
+class EulerKarrasConfig(SchedulerConfig):
+    """:class:`SchedulerConfig` and four keys of diffusers'
+    ``EulerDiscreteScheduler`` that the JAX package lacks
+    (``use_karras_sigmas``, ``sigma_min``, ``sigma_max``, ``timestep_type``).
+    ``from_config`` makes one where the dict names any of them (Stable Video
+    Diffusion's scheduler), a plain :class:`SchedulerConfig` otherwise.
+
+    With Karras sigmas Euler's state is the model input ``y = x /
+    sqrt(sigma^2 + 1)``, not diffusers' ``x`` (:meth:`Scheduler.step`): so
+    the grid starts at the seeded unit draw, as with the benchmark's other
+    schedulers, and its output check holds that start and each step's input
+    bit for bit (``benchmark/harness/check.py``); ``x`` would start at
+    ``sqrt(sigma_max^2 + 1)``, 700 times the draw for SVD-xt, rounded to the
+    grid's dtype once more. ``y`` starts at the draw and ends at x0."""
+
+    use_karras_sigmas: bool = False
+    sigma_min: float | None = None
+    sigma_max: float | None = None
+    timestep_type: str = "discrete"  # discrete | continuous
+
+
+def _opt(cfg: SchedulerConfig, name: str):
+    """An :class:`EulerKarrasConfig` field of ``cfg``, its default where
+    ``cfg`` is a plain :class:`SchedulerConfig`."""
+    return getattr(cfg, name, getattr(EulerKarrasConfig, name))
+
+
 def from_config(cfg: dict) -> "Scheduler":
     """Build from a diffusers ``scheduler_config.json`` dict (the JAX
     package's ``from_config``): the class name picks the kind, the keys
@@ -51,8 +79,11 @@ def from_config(cfg: dict) -> "Scheduler":
     }.get(class_name)
     if kind is None:
         raise NotImplementedError(f"Scheduler {class_name} not supported")
-    fields = {f.name for f in dataclasses.fields(SchedulerConfig)}
-    return Scheduler(SchedulerConfig(kind=kind, **{k: v for k, v in cfg.items() if k in fields}))
+    base = {f.name for f in dataclasses.fields(SchedulerConfig)}
+    extended = {f.name for f in dataclasses.fields(EulerKarrasConfig)}
+    cls, fields = (EulerKarrasConfig, extended) if (extended - base) & set(cfg) \
+        else (SchedulerConfig, base)
+    return Scheduler(cls(kind=kind, **{k: v for k, v in cfg.items() if k in fields}))
 
 
 def _make_betas(cfg: SchedulerConfig) -> np.ndarray:
@@ -88,6 +119,28 @@ def _spaced_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndar
         raise ValueError(f"Unknown timestep spacing: {cfg.timestep_spacing}")
     ts = ts[:n].astype(np.int64)
     return ts + cfg.steps_offset if cfg.timestep_spacing == "leading" else ts
+
+
+KARRAS_RHO = 7.0
+
+
+def karras_sigmas(sigma_min: float, sigma_max: float, n: int) -> np.ndarray:
+    """Karras et al.'s n noise levels from ``sigma_max`` down to
+    ``sigma_min`` (rho 7), float64, as diffusers' ``_convert_to_karras``."""
+    ramp = np.linspace(0, 1, n)
+    lo, hi = sigma_min ** (1 / KARRAS_RHO), sigma_max ** (1 / KARRAS_RHO)
+    return (hi + ramp * (lo - hi)) ** KARRAS_RHO
+
+
+def _sigma_to_t(sigmas: np.ndarray, log_sigmas: np.ndarray) -> np.ndarray:
+    """The fractional training timestep of each sigma, interpolated in log
+    sigma (diffusers' ``_sigma_to_t``)."""
+    log_sigma = np.log(np.maximum(sigmas, 1e-10))
+    dists = log_sigma - log_sigmas[:, None]
+    low = np.cumsum(dists >= 0, axis=0).argmax(axis=0).clip(max=log_sigmas.shape[0] - 2)
+    lo, hi = log_sigmas[low], log_sigmas[low + 1]
+    w = np.clip((lo - log_sigma) / (lo - hi), 0, 1)
+    return ((1 - w) * low + w * (low + 1)).reshape(sigmas.shape)
 
 
 def _euler_timesteps(cfg: SchedulerConfig, n: int) -> np.ndarray:
@@ -137,22 +190,36 @@ class Scheduler:
         new.num_inference_steps = num_inference_steps
         if cfg.kind == "euler":
             ts = _euler_timesteps(cfg, num_inference_steps)
-            new.timesteps = torch.tensor(ts, dtype=torch.float32, device=new.device)
             ac = np.cumprod(1.0 - _make_betas(cfg))
             sig_all = np.sqrt((1 - ac) / ac)
             sig = np.interp(ts, np.arange(len(sig_all)), sig_all)
-            new.sigmas = torch.tensor(np.concatenate([sig, [0.0]]), dtype=torch.float32,
-                                      device=new.device)
+            if _opt(cfg, "use_karras_sigmas"):
+                lo, hi = _opt(cfg, "sigma_min"), _opt(cfg, "sigma_max")
+                sig = karras_sigmas(sig[-1] if lo is None else lo, sig[0] if hi is None else hi,
+                                    num_inference_steps)
+                ts = _sigma_to_t(sig, np.log(sig_all))
+            sig32 = torch.tensor(sig, dtype=torch.float32)
+            if _opt(cfg, "timestep_type") == "continuous" and \
+                    cfg.prediction_type == "v_prediction":
+                new.timesteps = (0.25 * sig32.log()).to(new.device)
+            else:
+                new.timesteps = torch.tensor(ts, dtype=torch.float32, device=new.device)
+            new.sigmas = torch.cat([sig32, torch.zeros(1)]).to(new.device)
         else:
             ts = _spaced_timesteps(cfg, num_inference_steps)
             new.timesteps = torch.tensor(ts, dtype=torch.int64, device=new.device)
         return new
 
     @property
+    def _scaled_state(self) -> bool:
+        return bool(_opt(self.config, "use_karras_sigmas"))
+
+    @property
     def init_noise_sigma(self) -> float:
         """The initial noise scale, an fp32 value (about 14.6 for Euler
-        under ``leading`` spacing, 1 for the other kinds)."""
-        if self.config.kind != "euler":
+        under ``leading`` spacing; 1 for the other kinds and for Euler on
+        Karras sigmas, whose state starts at unit noise)."""
+        if self.config.kind != "euler" or self._scaled_state:
             return 1.0
         m = np.float32(self.sigmas.max().item())
         if self.config.timestep_spacing in ("linspace", "trailing"):
@@ -169,9 +236,10 @@ class Scheduler:
         return t_index.clamp(0, self.num_inference_steps - 1).long()
 
     def scale_model_input(self, sample: torch.Tensor, t_index: torch.Tensor) -> torch.Tensor:
-        """Euler divides by sqrt(sigma^2 + 1) in fp32; the other kinds
-        return ``sample``."""
-        if self.config.kind != "euler":
+        """Euler divides by sqrt(sigma^2 + 1) in fp32; the other kinds, and
+        Euler on Karras sigmas (its state is the model input), return
+        ``sample``."""
+        if self.config.kind != "euler" or self._scaled_state:
             return sample
         sigma = self.sigmas[self._clamped(t_index)]
         scale = 1.0 / torch.sqrt(sigma**2 + 1.0)
@@ -206,7 +274,12 @@ class Scheduler:
         ``mask == False`` pass through unchanged. DDPM and DDIM with eta > 0
         draw their noise from ``noise`` or ``generator`` and raise
         ``ValueError`` without either, as the JAX package does without a
-        key."""
+        key.
+
+        Euler on Karras sigmas takes and returns ``y = x / sqrt(sigma^2 +
+        1)`` at the row's own sigma (``y`` at the next one after the step):
+        the same step on ``x = y * sqrt(sigma^2 + 1)``, the result divided by
+        ``sqrt(sigma_next^2 + 1)``, all in fp32 (why: :class:`EulerKarrasConfig`)."""
         if self.num_inference_steps is None:
             raise ValueError("call set_timesteps first")
         kind = self.config.kind
@@ -216,7 +289,11 @@ class Scheduler:
         x = sample.float()
         eps = model_output.float()
         idx = self._clamped(t_index)
-        if kind == "euler":
+        if kind == "euler" and self._scaled_state:
+            c = _bcast(torch.sqrt(self.sigmas[idx] ** 2 + 1.0), x)
+            c_next = _bcast(torch.sqrt(self.sigmas[idx + 1] ** 2 + 1.0), x)
+            out = self._euler_step(eps, idx, x * c) / c_next
+        elif kind == "euler":
             out = self._euler_step(eps, idx, x)
         elif kind == "ddim":
             out = self._ddim_step(eps, idx, x, noise, generator)

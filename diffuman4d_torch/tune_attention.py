@@ -56,6 +56,12 @@ HOT_SHAPES = [
     ("2d@32sq", 32, 1024, 20, 64),
     ("2d@16sq_mid", 32, 256, 20, 64),
     ("vae_mid@128sq", 2, 16384, 1, 512),
+    # SVD-xt's temporal self-attention: 25 frames at each pixel of a level,
+    # fused CFG (b = 2 x pixels); B * H above gridDim.y's 65,535 at 96^2
+    ("svd_tem@96sq", 18432, 25, 5, 64),
+    ("svd_tem@48sq", 4608, 25, 10, 64),
+    ("svd_tem@24sq", 1152, 25, 20, 64),
+    ("svd_tem@12sq", 288, 25, 20, 64),
 ]
 BATCHED_BLOCK_B = (2, 4, 5, 8)
 DEFAULT_OUT = Path(__file__).resolve().parent / "ops" / "attention_table.json"
@@ -63,16 +69,17 @@ DEFAULT_OUT = Path(__file__).resolve().parent / "ops" / "attention_table.json"
 
 def candidates(b: int, s: int, h: int, d: int) -> dict[str, tuple[str, dict]]:
     """Candidate name -> (port kernel, block sizes) at self-attention shape
-    (b, s, h, d)."""
+    (b, s, h, d). The skewed and two-level kernels are candidates where the
+    keys fill their ``block_k`` (the gate of ``ops/attention.route``)."""
     from diffuman4d_torch.ops import flash_attention as fa
 
     out = {"flash_d512": ("flash_d512", {})} if d == 512 else {}
     for bq, kmaj, kin in fa.SKEW_CONFIGS:
-        if fa.skew_ok(d, bq, kmaj, kin):
+        if fa.skew_ok(d, bq, kmaj, kin) and s >= kin:
             out[f"flash_d64_{bq}x{kmaj}x{kin}"] = (
                 "flash_d64", {"block_q": bq, "block_k_major": kmaj, "block_k": kin})
     for bq, kmaj, kin in fa.TWO_LEVEL_CONFIGS:
-        if fa.two_level_ok(d, bq, kmaj, kin):
+        if fa.two_level_ok(d, bq, kmaj, kin) and s >= kin:
             out[f"two_level_{bq}x{kmaj}x{kin}"] = (
                 "two_level", {"block_q": bq, "block_k_major": kmaj, "block_k": kin})
     for bq in fa.SINGLE_PASS_BLOCK_Q:

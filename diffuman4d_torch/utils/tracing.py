@@ -71,6 +71,12 @@ def _range(name: str):
     return _autograd_profiler.record_function(name)
 
 
+def profiler_range(name: str | None):
+    """A profiler range ``name`` around a block (no span: not timed), while
+    a profiler records; else, or with no name, a no-op context."""
+    return _NO_RANGE if name is None else _range(name)
+
+
 def ranged(name: str):
     """Decorate a function so that each call is a profiler range ``name``
     while a profiler records (no span: the call is not timed)."""

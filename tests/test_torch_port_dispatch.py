@@ -384,17 +384,21 @@ def test_write_table_merges_like_the_jax_tuner(tmp_path, old_table):
 
 
 def test_tuner_shapes_and_candidates():
-    """The JAX package's hot shapes plus the per-frame 16^2 mid block; every
+    """The JAX package's hot shapes plus the per-frame 16^2 mid block and
+    SVD-xt's temporal self-attention (25 frames at each level); every
     candidate is a port kernel at block sizes its gate admits, with no plain
-    or library candidate; the single pass qualifies at S <= 4,096."""
+    or library candidate; the single pass qualifies at S <= 4,096, the
+    skewed and two-level kernels where S fills their block_k."""
     from diffuman4d_torch import tune_attention as ta
 
-    extra = ("2d@16sq_mid", 32, 256, 20, 64)
-    assert sorted(ta.HOT_SHAPES) == sorted(_jax_tuner().HOT_SHAPES + [extra])
+    extra = [("2d@16sq_mid", 32, 256, 20, 64), ("svd_tem@96sq", 18432, 25, 5, 64),
+             ("svd_tem@48sq", 4608, 25, 10, 64), ("svd_tem@24sq", 1152, 25, 20, 64),
+             ("svd_tem@12sq", 288, 25, 20, 64)]
+    assert sorted(ta.HOT_SHAPES) == sorted(_jax_tuner().HOT_SHAPES + extra)
     single = set()
     for name, b, s, h, d in ta.HOT_SHAPES:
         cands = ta.candidates(b, s, h, d)
-        assert f"flash_d{d}" in {impl for impl, _ in cands.values()}
+        assert (f"flash_d{d}" in {impl for impl, _ in cands.values()}) == (s >= 64)
         for cname, (impl, params) in cands.items():
             assert impl in fa.KERNELS and set(params) == set(fa.BLOCK_PARAMS[impl])
             if impl.startswith("single_pass"):
@@ -405,7 +409,8 @@ def test_tuner_shapes_and_candidates():
                 assert fa.two_level_ok(d, *params.values())
             if impl == "flash_d64":
                 assert fa.skew_ok(d, *params.values())
-    assert single == {"2d@16sq_mid", "2d@32sq", "2d@64sq", "3d@16sq_mid"}
+    assert single == {"2d@16sq_mid", "2d@32sq", "2d@64sq", "3d@16sq_mid", "svd_tem@96sq",
+                      "svd_tem@48sq", "svd_tem@24sq", "svd_tem@12sq"}
 
 
 def test_tuner_exits_2_without_a_card():
