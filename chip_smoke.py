@@ -215,8 +215,13 @@ Phases:
    launched; inputs whose images, groups and channels differ in mean and
    scale by far more than the tolerance) must agree with its plain version
    elementwise within ``GN_REL_TOL`` and repeat bit for bit; its bound is 6
-   bytes an element. The reference phase counts its launches beside the
-   other kernels'.
+   bytes an element. The LayerNorm kernel (``LN_SHAPES``, then every
+   launched shape) must be within one bf16 ulp of max(|y|, 2^-6) of its
+   plain version and the GEGLU kernel (``GEGLU_SHAPES``, likewise) give its
+   plain version's bits, each twice the same; their bounds are 4 bytes an
+   element and 6 bytes an output element, ``F.layer_norm`` and ``F.gelu``
+   with the product their library yardsticks. The reference phase counts
+   every one of these kernels' launches beside the attention kernels'.
 
 ``--phases profile`` (not in the default set) adds a torch.profiler
 breakdown of one CFG window step, one VAE decode micro-batch, a VAE encode
@@ -387,6 +392,16 @@ CONV_SHAPES = [
 GN_SHAPES = [(32, 128, 128, 320, 32), (32, 64, 64, 640, 32), (32, 32, 32, 1280, 32),
              (24, 128, 128, 960, 32), (2, 1024, 1024, 128, 32),
              (2, 25 * 96, 96, 320, 32), (2, 25 * 48, 48, 640, 32)]
+# (rows, C) of the LayerNorm kernel: the cells' heaviest (Diffuman4D's
+# batch 32 at 128^2 latents, 320 channels), the 1,280-channel level of a
+# temporal window (batch 32 at 32^2), and SVD-xt's 50 frames at each level
+# with a transformer (96^2, 48^2, 24^2 and the middle block's 12^2: the
+# spatial rows, and the temporal rows of the (B*HW, F, C) transpose, which
+# are as many); (rows, 2I) of the GEGLU kernel at the same rows, inner 4C
+LN_SHAPES = [(524288, 320), (32768, 1280), (460800, 320), (115200, 640), (28800, 1280),
+             (7200, 1280)]
+GEGLU_SHAPES = [(524288, 2560), (460800, 2560), (115200, 5120), (28800, 10240),
+                (7200, 10240)]
 # (B, S, H) at head dim 64 of the train step (B = 1 window of L = 12 frames
 # over 128^2 latents): per-frame and 3D attention at each level
 TRAIN_ATTN_SHAPES = [
@@ -675,6 +690,84 @@ def check_groupnorm(B: int, H: int, W: int, C: int, groups: int, gen) -> dict:
     return res
 
 
+def check_layernorm(rows: int, C: int, gen) -> dict:
+    """The LayerNorm kernel against its plain version at one shape: every
+    element within one bf16 ulp of max(|y|, 2^-6) of it, two launches the
+    same bits; ``F.layer_norm`` on the bf16 rows as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffuman4d_torch.ops import layernorm_geglu as lg
+
+    m = 16 * torch.rand((rows, 1), generator=gen, device="cuda") - 8  # a mean a row
+    s = 0.5 * 8 ** torch.rand((rows, 1), generator=gen, device="cuda")
+    x = (torch.randn((rows, C), generator=gen, device="cuda") * s + m).bfloat16()
+    w = (1 + 0.2 * torch.randn((C,), generator=gen, device="cuda")).bfloat16()
+    b = (0.2 * torch.randn((C,), generator=gen, device="cuda")).bfloat16()
+    out = lg.layer_norm(x, w, b, 1e-5)
+    ref = lg.layer_norm_plain(x, w, b, 1e-5).float()
+    diff = (out.float() - ref).abs()
+    _, e = torch.frexp(ref.abs().clamp_min(2 ** -6))
+    over = (diff - torch.ldexp(torch.ones_like(ref), e - 8)).max().item()
+    err = diff.max().item()
+    del diff, ref, e
+    repeat = torch.equal(out, lg.layer_norm(x, w, b, 1e-5))
+    ms = cuda_ms(lambda: lg.layer_norm(x, w, b, 1e-5), iters=10)
+    plain_ms = cuda_ms(lambda: lg.layer_norm_plain(x, w, b, 1e-5))
+    library_ms = try_ms(lambda: F.layer_norm(x, (C,), w, b, 1e-5), iters=10)
+    nbytes = 4.0 * x.numel()  # x read once, y written once
+    res = {"shape": f"{rows}x{C}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "repeatable": repeat, "gb_per_s": nbytes / ms / 1e6,
+           **bound(0.0, nbytes)}
+    log(f"  layernorm {res['shape']}: err {err:.3e}  kernel {ms:.4f} ms "
+        f"({res['gb_per_s']:.0f} GB/s, {res['bound_ms'] / ms:.1%} of the bound)  plain "
+        f"{plain_ms:.3f} ms  library {library_ms} ms  bound {res['bound_ms']:.4f} ms")
+    if not over <= 0:
+        raise AssertionError(f"layernorm {res['shape']}: error {err} beyond one bf16 ulp "
+                             f"(by {over})")
+    if not repeat:
+        raise AssertionError(f"layernorm {res['shape']}: two launches gave other bits")
+    return res
+
+
+def check_geglu(rows: int, width: int, gen) -> dict:
+    """The GEGLU kernel against its plain version at one shape (the
+    projection ``width`` wide): the same bits, twice; ``F.gelu`` on the bf16
+    gate and the product as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffuman4d_torch.ops import layernorm_geglu as lg
+
+    proj = (3 * torch.randn((rows, width), generator=gen, device="cuda")).bfloat16()
+    out = lg.geglu(proj)
+    ref = lg.geglu_plain(proj)
+    err = (out.float() - ref.float()).abs().max().item()
+    same = torch.equal(out, ref)
+    del ref
+    repeat = torch.equal(out, lg.geglu(proj))
+    ms = cuda_ms(lambda: lg.geglu(proj), iters=10)
+    plain_ms = cuda_ms(lambda: lg.geglu_plain(proj))
+
+    def library():
+        hidden, gate = proj.chunk(2, dim=-1)
+        return hidden * F.gelu(gate)
+
+    library_ms = try_ms(library, iters=10)
+    nbytes = 3.0 * proj.numel()  # the projection read once, the half-width product written
+    res = {"shape": f"{rows}x{width}->{width // 2}", "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "repeatable": repeat,
+           "bit_equal": same, "gb_per_s": nbytes / ms / 1e6, **bound(0.0, nbytes)}
+    log(f"  geglu {res['shape']}: bit-equal {same}  kernel {ms:.4f} ms "
+        f"({res['gb_per_s']:.0f} GB/s, {res['bound_ms'] / ms:.1%} of the bound)  plain "
+        f"{plain_ms:.3f} ms  library {library_ms} ms  bound {res['bound_ms']:.4f} ms")
+    if not same:
+        raise AssertionError(f"geglu {res['shape']}: not the plain version's bits (max {err})")
+    if not repeat:
+        raise AssertionError(f"geglu {res['shape']}: two launches gave other bits")
+    return res
+
+
 def _head_rel_err(got, want) -> float:
     """Largest error of each (batch row, head) over its largest reference
     entry; tensors are (B, S, H, D)."""
@@ -875,6 +968,12 @@ def phase_kernels(launched: dict) -> dict:
     for shape in _ordered(GN_SHAPES, launched.get("groupnorm", ())):
         results["groupnorm"].append(check_groupnorm(*shape, gen))
         torch.cuda.empty_cache()
+    for name, check, fixed in (("layernorm", check_layernorm, LN_SHAPES),
+                               ("geglu", check_geglu, GEGLU_SHAPES)):
+        results[name] = []
+        for shape in _ordered(fixed, launched.get(name, ())):
+            results[name].append(check(*shape, gen))
+            torch.cuda.empty_cache()
     # the train path: B5 and the fused B6 + B7 at its fixed shapes and at
     # every shape it launched
     train_launched = set().union(*(launched.get(n, ()) for n in ("flash_fwd_lse", "flash_bwd")))
@@ -901,8 +1000,9 @@ def _d64_blocks(B: int, S: int, H: int) -> tuple:
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel call sites to the plain versions."""
-    from diffuman4d_torch.models import layers, vae
+    from diffuman4d_torch.models import layers, transformer, vae
     from diffuman4d_torch.ops import conv, flash_attention, flash_backward, groupnorm
+    from diffuman4d_torch.ops import layernorm_geglu as lg
 
     def attention(q, k, v, *, implementation="auto"):
         if implementation == "train":
@@ -910,16 +1010,18 @@ def plain_versions():
         return flash_attention.attention_plain(q, k, v)
 
     saved = (layers.dot_product_attention, vae.dot_product_attention, layers.conv3x3,
-             layers.group_norm, layers.groupnorm_affine)
+             layers.group_norm, layers.groupnorm_affine, layers.geglu, transformer.layer_norm)
     layers.dot_product_attention = vae.dot_product_attention = attention
     layers.conv3x3 = conv.conv3x3_plain
     layers.group_norm = groupnorm.group_norm_plain
     layers.groupnorm_affine = groupnorm.groupnorm_affine_plain
+    layers.geglu, transformer.layer_norm = lg.geglu_plain, lg.layer_norm_plain
     try:
         yield
     finally:
         (layers.dot_product_attention, vae.dot_product_attention, layers.conv3x3,
-         layers.group_norm, layers.groupnorm_affine) = saved
+         layers.group_norm, layers.groupnorm_affine, layers.geglu,
+         transformer.layer_norm) = saved
 
 
 def _rel_l2(a, b) -> float:
@@ -935,6 +1037,7 @@ def phase_reference(unet, vae) -> dict:
     import torch
 
     from diffuman4d_torch.ops import conv, flash_attention as fa, groupnorm
+    from diffuman4d_torch.ops import layernorm_geglu as lg
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     L = 4
@@ -943,10 +1046,11 @@ def phase_reference(unet, vae) -> dict:
     t = torch.full((2 * L,), 901, device="cuda")
     z = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").bfloat16()
     def counts():  # d = 64 attention (whichever kernel the table picks), d = 512, conv,
-        # the GroupNorm pair
+        # the GroupNorm pair, LayerNorm, GEGLU
         return (sum(f.launches for n, f in fa.KERNELS.items() if n != "flash_d512"),
                 fa.flash_attention_d512.launches, conv.conv3x3.launches,
-                groupnorm.groupnorm_stats.launches, groupnorm.groupnorm_apply.launches)
+                groupnorm.groupnorm_stats.launches, groupnorm.groupnorm_apply.launches,
+                lg.layernorm_kernel.launches, lg.geglu_kernel.launches)
 
     before = counts()
     with torch.no_grad():
@@ -1050,6 +1154,7 @@ PROFILE_GROUPS = (  # kernel-name pattern -> group, first match wins
     ("single_pass_wgmma_kernel", "single-pass attention (csrc)"),
     ("conv3x3_wgmma_kernel", "fused conv3x3, TMA + wgmma (csrc)"),
     ("gn_stats_kernel|gn_finalize_kernel|gn_apply_kernel", "GroupNorm (+ SiLU) pair (csrc)"),
+    ("layernorm_kernel|geglu_kernel", "LayerNorm and GEGLU (csrc)"),
     ("fprop|conv|implicit|winograd", "cuDNN conv"),
     ("gemm|nvjet|xmma|cutlass|sm90", "GEMM"),
     ("norm|reduce|softmax", "norm / reduction"),
@@ -1184,12 +1289,15 @@ def _reset(wrappers) -> None:
 def _path_wrappers() -> dict:
     """The kernel wrappers that the sampling paths launch, by their names in
     the results: the attention kernels, the fused conv and the GroupNorm
-    pair (its statistics wrapper: one launch per GroupNorm)."""
+    pair (its statistics wrapper: one launch per GroupNorm), the LayerNorm
+    and the GEGLU kernel."""
     from diffuman4d_torch.ops import conv, groupnorm
     from diffuman4d_torch.ops import flash_attention as fa
+    from diffuman4d_torch.ops import layernorm_geglu as lg
 
     return {**{ATTN_NAMES[n]: f for n, f in fa.KERNELS.items()}, "conv3x3": conv.conv3x3,
-            "groupnorm": groupnorm.groupnorm_stats}
+            "groupnorm": groupnorm.groupnorm_stats, "layernorm": lg.layernorm_kernel,
+            "geglu": lg.geglu_kernel}
 
 
 def _kernel_counts(wrappers: dict) -> tuple[dict, dict]:
@@ -3108,6 +3216,12 @@ PORT_KERNEL_META = {
     "groupnorm": ("diffuman4d_torch/csrc/groupnorm_hopper.cu",
                   "none: GroupNorm (+ SiLU), eager PyTorch moved ~60 bytes per element",
                   "groupnorm", 0, (*PATHS, "units")),
+    "layernorm": ("diffuman4d_torch/csrc/layernorm_geglu_hopper.cu",
+                  "none: the blocks' LayerNorm, eager PyTorch moved 20 bytes per element",
+                  "layernorm", 0, (*PATHS, "units")),
+    "geglu": ("diffuman4d_torch/csrc/layernorm_geglu_hopper.cu",
+              "none: the GEGLU gate, eager PyTorch moved 26 bytes per output element",
+              "geglu", 0, (*PATHS, "units")),
 }
 
 

@@ -20,6 +20,7 @@ from torch import nn
 from diffuman4d_torch.ops.attention import dot_product_attention
 from diffuman4d_torch.ops.conv import conv3x3, conv3x3_ok
 from diffuman4d_torch.ops.groupnorm import group_norm, groupnorm_affine
+from diffuman4d_torch.ops.layernorm_geglu import geglu
 from diffuman4d_torch.ops.resize import upsample_nearest_2x
 from diffuman4d_torch.utils.tracing import profiler_range
 
@@ -132,13 +133,15 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
+    """The projection, then ``hidden * gelu(gate)`` (``ops.layernorm_geglu.geglu``:
+    one kernel on a CUDA tensor)."""
+
     def __init__(self, dim: int, inner: int):
         super().__init__()
         self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hidden, gate = self.proj(x).chunk(2, dim=-1)
-        return hidden * F.gelu(gate.float()).to(hidden.dtype)
+        return geglu(self.proj(x))
 
 
 class FeedForward(nn.Module):

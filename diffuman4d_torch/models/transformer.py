@@ -14,18 +14,18 @@ where it attends one frame, stay local.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from diffuman4d_torch.models.layers import Attention, FeedForward, GroupNorm, conv_nhwc
+from diffuman4d_torch.ops.layernorm_geglu import layer_norm
 
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, output in the input dtype."""
+    """LayerNorm with fp32 statistics, output in the input dtype
+    (``ops.layernorm_geglu.layer_norm``: one kernel on a CUDA tensor)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class MultiviewTransformerBlock(nn.Module):

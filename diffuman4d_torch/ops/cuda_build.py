@@ -47,6 +47,10 @@ ENTRIES = {
         "groupnorm_stats": [_PTR] * 6 + [_INT] * 8 + [_PTR],
         "groupnorm_apply": [_PTR] * 4 + [_INT] * 6 + [_PTR],
     },
+    "layernorm_geglu_hopper": {
+        "layernorm_fwd": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        "geglu_fwd": [_PTR] * 2 + [_INT] * 3 + [_PTR],
+    },
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = (

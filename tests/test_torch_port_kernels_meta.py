@@ -23,6 +23,7 @@ from diffuman4d_torch.ops import attention as attn
 from diffuman4d_torch.ops import conv, cuda_build
 from diffuman4d_torch.ops import flash_attention as fa
 from diffuman4d_torch.ops import flash_backward as fb
+from diffuman4d_torch.ops import layernorm_geglu as lg
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = cuda_build.CSRC
@@ -31,7 +32,8 @@ LIBRARY_OF = {fn: lib for lib, fns in cuda_build.ENTRIES.items() for fn in fns}
 ALL_ENTRIES = [(lib, fn) for lib, fns in cuda_build.ENTRIES.items() for fn in fns]
 WRAPPERS = {**{f"fa.{n}": f for n, f in fa.KERNELS.items()},
             "fb.flash_fwd_lse": fb.flash_fwd_lse, "fb.flash_bwd": fb.flash_bwd,
-            "conv.conv3x3": conv.conv3x3}
+            "conv.conv3x3": conv.conv3x3, "lg.layernorm_kernel": lg.layernorm_kernel,
+            "lg.geglu_kernel": lg.geglu_kernel}
 
 
 def _string_constants(fn) -> set[str]:
